@@ -4,7 +4,7 @@ browser (the reference imgui_app analog).
     JAX_PLATFORMS=cpu python examples/viewer.py --size 256 --port 8000
     # open http://127.0.0.1:8000 — WASD/QE + arrows, click to probe
 
-On the TPU container run without JAX_PLATFORMS to render on-chip.
+On a GPU machine run without JAX_PLATFORMS to render on the card.
 """
 import argparse
 import os

@@ -1,7 +1,7 @@
-"""rfw_tpu — a TPU-native path-tracing framework.
+"""rfw_tpu — a JAX path-tracing framework.
 
 A ground-up rebuild of the capabilities of MeirBon/rendering-fw on
-JAX/XLA/Pallas. See ARCHITECTURE.md for the layer map and design decisions.
+JAX/XLA/Pallas, run on NVIDIA GPUs (tests on the CPU). See ARCHITECTURE.md for the layer map and design decisions.
 """
 
 from .camera import Camera, CameraView

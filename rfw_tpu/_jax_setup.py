@@ -1,16 +1,24 @@
 """Process-wide JAX configuration applied on first rfw_tpu compute import.
 
-Persistent compilation cache: the 1080p pipeline takes 2-9 minutes of
-XLA+Mosaic compilation per process; with the cache a warm start is ~20 s
-(measured 516 s → 23.6 s on the bench scene's first sample). Opt out with
-RFW_NO_COMPILE_CACHE=1 or point RFW_COMPILE_CACHE_DIR elsewhere.
+Persistent compilation cache: where ``JAX_COMPILATION_CACHE_DIR`` is set,
+JAX reads it itself and this module sets nothing. Otherwise the cache lives
+at the fixed path ``<checkout>/.jax_cache`` (git-ignored), so every process
+run from one checkout shares it: the path is part of the cache key.
 """
 
 from __future__ import annotations
 
 import os
 
+CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
 _done = False
+
+
+def cache_dir() -> str:
+    """The compilation cache directory this process uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or CACHE_DIR
 
 
 def setup() -> None:
@@ -18,19 +26,15 @@ def setup() -> None:
     if _done:
         return
     _done = True
-    if os.environ.get("RFW_NO_COMPILE_CACHE"):
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
         return
     import jax
 
-    path = os.environ.get(
-        "RFW_COMPILE_CACHE_DIR",
-        os.path.join(os.path.expanduser("~"), ".cache", "rfw_tpu",
-                     "jax_cache"))
     try:
-        os.makedirs(path, exist_ok=True)
-        jax.config.update("jax_compilation_cache_dir", path)
+        os.makedirs(CACHE_DIR, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", CACHE_DIR)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:   # cache is best-effort; never break rendering
+    except OSError:   # read-only checkout: run without a persistent cache
         pass
 
 

@@ -2,7 +2,7 @@
 
 Rebuild of ``rfw::app`` (/root/reference/RFW/system/src/rfw/app.{h,cpp}):
 subclass, implement ``init``/``update``, call ``App.run``. The reference
-drives a GLFW window + ImGui; a TPU render service has no GL surface, so the
+drives a GLFW window + ImGui; a headless render service has no GL surface, so the
 harness is headless: each frame is synchronized, rendered, tonemapped and
 handed to ``post_render`` (write PNGs, stream, encode video). Camera state
 persists to camera.bin across runs (app.cpp ctor/dtor behavior).

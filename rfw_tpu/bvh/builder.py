@@ -8,7 +8,7 @@ consumes the flat SoA arrays on device.
 
 Output is a *binary* BVH in SoA form plus a triangle permutation; leaves hold
 contiguous triangle ranges, so downstream consumers (wide collapse, treelet
-extraction for the MXU intersector) slice permuted triangle arrays directly.
+extraction for the dense intersectors) slice permuted triangle arrays directly.
 
 When the native library built from rfw_tpu/native/bvh_builder.cpp is
 available it is used automatically (≈20× faster than the numpy path); both

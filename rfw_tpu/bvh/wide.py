@@ -8,8 +8,8 @@ rtbvh ``create_mbvh`` call). Here the same collapse feeds two consumers:
   (ops/traverse.py), W=4 by default like the reference.
 * ``extract_treelets`` — cuts the binary BVH into leaf subtrees of at most K
   triangles. Because the builder permutes triangles into leaf-contiguous
-  order, each treelet is a *contiguous* triangle range; the Pallas/MXU engine
-  intersects (ray block × treelet) pairs densely. A second, shallow BVH over
+  order, each treelet is a *contiguous* triangle range; the dense and visit
+  intersectors test (ray block × treelet) pairs densely. A second, shallow BVH over
   treelet AABBs provides the culling hierarchy.
 """
 
@@ -23,11 +23,10 @@ from .builder import BVH, build_bvh
 
 INVALID = np.int32(-1)
 
-# consecutive kd cells grouped into one DMA/cull unit ("super"): the
-# scene build packs per-super bounds tables (scene_data cbounds/sbmin/
-# sbmax) and the visit intersector's optional "super" granularity walks
-# supers instead of cells (ops/visit_intersect._granularity). Lived in
-# ops/pallas_intersect until that kernel generation was deleted (r5).
+# consecutive kd cells grouped into one cull unit ("super"): the scene
+# build packs per-super bounds tables (scene_data cbounds/sbmin/sbmax) and
+# the visit intersector's optional "super" granularity walks supers
+# instead of cells (ops/visit_intersect._granularity).
 SUPER_G = 8
 
 
@@ -147,12 +146,11 @@ def spatial_treelets(tri_min: np.ndarray, tri_max: np.ndarray,
     member triangles.
 
     Why this replaces SAH-subtree extraction for the dense intersector:
-    measured on pica-4x (305k tris, tools/spatial_cut_proto.py), SAH-subtree
-    treelet AABBs overlap so heavily that a ray's slab path crosses ~75 of
-    2048 treelets *before its own hit distance* (front-to-back early exit
-    cannot help — the entry bounds are all earlier than the hit). Disjoint
-    centroid cells reduce entered-before-hit crossings to ~1 (primary) / ~2
-    (bounce) at K=128, i.e. ~40x less dense intersection work. The trade-off
+    SAH-subtree treelet AABBs overlap so heavily that a ray's slab path
+    crosses tens of treelets *before its own hit distance* (front-to-back
+    early exit cannot help — the entry bounds are all earlier than the
+    hit); disjoint centroid cells cut that to one or two (a host-side
+    count on a 305k-triangle interior). The trade-off
     — boundary triangles poke slightly past their cell (the cells' tight
     bounds may overlap a little) — costs ~3 extra crossings per ray and
     nothing in correctness: the intersector's conservative per-block
@@ -162,7 +160,7 @@ def spatial_treelets(tri_min: np.ndarray, tri_max: np.ndarray,
     every cell except at most one per subtree is exactly full — dense-lane
     occupancy stays near 100% where SAH cuts average ~60%.
 
-    This is the TPU answer to the reference's SBVH spatial splits
+    This is the visit lists' answer to the reference's SBVH spatial splits
     (top_level_bvh.cpp:41, rtbvh create_spatial_bvh): spatial partitioning
     buys exactly what a lockstep dense intersector needs — short, genuinely
     front-to-back candidate lists.
@@ -233,76 +231,6 @@ def spatial_treelets(tri_min: np.ndarray, tri_max: np.ndarray,
         first=np.arange(n, dtype=np.int32) * size, count=count,
         bmin=bmin, bmax=bmax, size=size, pad_map=pad_map, top=top,
     )
-
-
-def subdivide_cells(pad_map: np.ndarray, tri_min: np.ndarray,
-                    tri_max: np.ndarray, size: int, sub: int = 4):
-    """Spatially reorder each cell's padded slots (2-level kd split of its
-    members into ``sub`` quarters) and return the child-cell tables for
-    sub-granularity intersection (round-5 'tvisit' core).
-
-    Cell membership is untouched — only the *order of slots within each
-    cell* changes, which downstream code is explicitly allowed to ignore
-    (cells are unordered sets; see spatial_treelets). Child ``j`` of cell
-    ``c`` then owns the contiguous slot range
-    ``[c*size + j*csize, c*size + (j+1)*csize)`` with a tight AABB over
-    its members, giving a K/4-granule candidate structure that nests in
-    the existing cells: parent tables gate conservatively, child tests
-    are exact.
-
-    Returns ``(pad_map_reordered, child_bmin, child_bmax, child_count)``
-    with child arrays shaped (T*sub, ...). Empty children get far-point
-    boxes (never crossed — same convention as cell padding).
-    """
-    assert sub == 4 and size % 4 == 0, "2-level kd split → sub == 4"
-    t = pad_map.reshape(-1, size)
-    n_cells = t.shape[0]
-    valid = t >= 0
-    idx = np.maximum(t, 0)
-    cent = np.where(valid[..., None],
-                    0.5 * (tri_min[idx] + tri_max[idx]), np.float32(3e38))
-
-    def split_order(cent_seg, valid_seg):
-        """(C, S, 3) centroids → per-row argsort along each row's widest
-        axis (pads carry 3e38 → sort last)."""
-        lo = np.where(valid_seg[..., None], cent_seg, np.float32(3e38))
-        hi = np.where(valid_seg[..., None], cent_seg, np.float32(-3e38))
-        # f64 subtract: all-pad rows hit (-3e38) - (3e38), which overflows
-        # f32 (harmless — their argsort order is irrelevant — but noisy)
-        ext = (hi.max(axis=1).astype(np.float64)
-               - lo.min(axis=1).astype(np.float64))      # (C, 3)
-        ax = np.argmax(ext, axis=1)                      # (C,)
-        key = np.take_along_axis(
-            cent_seg, ax[:, None, None], axis=2)[..., 0]  # (C, S)
-        return np.argsort(key, axis=1, kind="stable")
-
-    o1 = split_order(cent, valid)                        # (T, size)
-    cent1 = np.take_along_axis(cent, o1[..., None], axis=1)
-    valid1 = np.take_along_axis(valid, o1, axis=1)
-    half = size // 2
-    c2 = cent1.reshape(n_cells * 2, half, 3)
-    v2 = valid1.reshape(n_cells * 2, half)
-    o2 = split_order(c2, v2)                             # (T*2, half)
-    # compose: within-cell order = o1 then o2 within halves
-    o2_full = (o2 + (np.arange(n_cells * 2)[:, None] % 2) * half
-               ).reshape(n_cells, size)
-    order = np.take_along_axis(o1, o2_full, axis=1)      # (T, size)
-    t_new = np.take_along_axis(t, order, axis=1)
-
-    csize = size // sub
-    tc = t_new.reshape(n_cells * sub, csize)
-    vv = tc >= 0
-    ii = np.maximum(tc, 0)
-    blo = np.where(vv[..., None], tri_min[ii], np.float32(3e37))
-    bhi = np.where(vv[..., None], tri_max[ii], np.float32(-3e38))
-    child_bmin = blo.min(axis=1).astype(np.float32)
-    child_bmax = bhi.max(axis=1).astype(np.float32)
-    child_count = vv.sum(axis=1).astype(np.int32)
-    empty = child_count == 0
-    child_bmin[empty] = 3e37                # far-point box (never crossed)
-    child_bmax[empty] = 3e37
-    return (t_new.reshape(-1).astype(pad_map.dtype),
-            child_bmin, child_bmax, child_count)
 
 
 def extract_treelets(bvh: BVH, tri_min: np.ndarray, tri_max: np.ndarray,

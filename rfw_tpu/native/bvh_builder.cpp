@@ -1,6 +1,6 @@
 // Native BVH builder: binned-SAH top-down build + bottom-up refit.
 //
-// The TPU framework's replacement for the reference's Rust `rtbvh` crate
+// The framework's replacement for the reference's Rust `rtbvh` crate
 // (pulled via FFI in /root/reference/RFW/system/bvh/CMakeLists.txt:12-47 and
 // wrapped by bvh_tree.cpp:74-101): same role — fast host-side construction
 // feeding device traversal — with a plain C ABI consumed through ctypes

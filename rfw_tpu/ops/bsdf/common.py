@@ -3,7 +3,7 @@
 
 All functions broadcast over leading dims; directions are unit (..., 3).
 Branches are jnp.where selections — everything evaluates branchlessly, which
-is both the TPU-friendly form and exactly how a lockstep warp executes the
+is both the form vector units want and exactly how a lockstep warp executes the
 reference's CUDA branches anyway.
 """
 

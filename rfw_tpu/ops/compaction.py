@@ -2,11 +2,11 @@
 
 The reference compacts its wavefront with atomic counters
 (/root/reference/RFW/backends/CUDART/src/Kernels.cu:151-179 InitCounters,
-:640,747,788 atomicAdd queues). TPUs have no global atomics; the equivalent
-here is mask → sort, which is also bit-deterministic (SURVEY §2.9).
+:640,747,788 atomicAdd queues). The equivalent here is mask → sort, which
+is bit-deterministic (SURVEY §2.9).
 
-Ray *sorting* groups coherent rays into the same 128-ray block so the Pallas
-treelet intersector's per-block candidate lists stay short on bounce rays:
+Ray *sorting* groups coherent rays into the same 256-ray block so the visit
+intersector's per-block candidate lists stay short on bounce rays:
 keys combine the direction octant with a Morton code of the ray origin —
 the standard wavefront-coherence recipe.
 """
@@ -32,23 +32,12 @@ def ray_sort_keys(origins, directions, scene_lo, scene_hi,
     bits)] — 3 + 3*dir_bits + 3*bits low bits (callers stack flags
     from bit 28 up).
 
-    DIRECTION-MAJOR below the octant, measured on the real 518k-lane
-    depth-1 bounce stream (pica-4x 1080p; tools/sortkey_sim2.py —
-    sortkey_sim.py's box included 3e37 padding cells, degenerating its
-    origin mortons, so its earlier origin-major conclusion was an
-    artifact). Per-256-ray-block executed visits under the straggler
-    bound:
-
-        octant | morton5(o) | morton2(d)   exec 219 visits/block (old)
-        octant | morton2(d) | morton5(o)   exec 122 visits/block
-        octant | morton3(d) | morton5(o)   exec 142
-        octant | morton2(d) | morton7(o)   exec 132
-
-    Hemisphere-scattered directions drive the crossed-cell union, so a
-    coarse direction grouping ABOVE the origin Morton cuts executed
-    visits ~40%; finer direction bins (3+) scatter the origin clusters
-    and lose."""
-    import os
+    DIRECTION-MAJOR below the octant: hemisphere-scattered directions
+    drive a block's crossed-cell union on depth-1 bounce streams, so a
+    coarse direction grouping ABOVE the origin Morton shortens the visit
+    lists; finer direction bins (3+) scatter the origin clusters and
+    lose (a host-side count of visits per 256-ray block, no device
+    timing)."""
     octant = ((directions[:, 0] > 0).astype(jnp.uint32)
               | ((directions[:, 1] > 0).astype(jnp.uint32) << 1)
               | ((directions[:, 2] > 0).astype(jnp.uint32) << 2))
@@ -57,15 +46,6 @@ def ray_sort_keys(origins, directions, scene_lo, scene_hi,
     scale = jnp.float32((1 << bits) - 1)
     qi = (q * scale).astype(jnp.uint32)
     morton = _morton3(qi[:, 0], qi[:, 1], qi[:, 2], bits)
-    if os.environ.get("RFW_KEYS_ORIGIN_MAJOR"):   # perf bisect knob
-        key = (octant << jnp.uint32(3 * bits)) | morton
-        if dir_bits:
-            dq = jnp.clip((directions + 1.0) * 0.5, 0.0, 1.0)
-            di = jnp.minimum((dq * (1 << dir_bits)).astype(jnp.uint32),
-                             (1 << dir_bits) - 1)
-            dmorton = _morton3(di[:, 0], di[:, 1], di[:, 2], dir_bits)
-            key = (key << jnp.uint32(3 * dir_bits)) | dmorton
-        return key
     key = morton
     if dir_bits:
         dq = jnp.clip((directions + 1.0) * 0.5, 0.0, 1.0)

@@ -51,8 +51,7 @@ def generate_primary_rays(view, width: int, height: int, sample_index,
     values precomputed once per resolution/scene (wavefront_driver): "sx"/
     "sy" pixel coordinates (the u32 div/mod) and "bn_row" blue-noise shift
     rows (the (N, dims) gather). Values are bitwise-identical to the
-    inline computation — this only removes ~35 ms/sample of repeated
-    per-sample work at 1080p (tools/step_time.py).
+    inline computation — this only removes repeated per-sample work.
     """
     if pixel_ids is None:
         pixel_ids = jnp.arange(width * height, dtype=jnp.uint32)

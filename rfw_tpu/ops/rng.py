@@ -171,9 +171,8 @@ def blue_noise_stack(size: int = _MASK_SIZE,
     """(size, size, dims) stack of per-dimension shifted mask copies.
 
     One (R, dims) ROW gather fetches every dimension's shift for a pixel
-    — each separate mask[y+oy, x+ox] lookup is its own ~7 ms HBM gather
-    per 518k lanes (raygen draws 4 dims, NEE 2 more: ~40 ms/chunk of
-    shift gathers collapse into one).
+    instead of one mask[y+oy, x+ox] gather per dimension (raygen draws 4
+    dims, NEE 2 more).
     """
     mask = blue_noise_mask(size)
     out = np.empty((size, size, dims), np.float32)
@@ -217,8 +216,8 @@ def blue_noise_sample(mask, x, y, sample_index, dim: int):
     decorrelated per-dimension, toroidally shifted per pixel by the
     blue-noise mask so that low-spp error is high-frequency. Every
     DIMENSION gets its own mask offset (the reference scrambles per
-    dimension via its ranking tiles, blue_noise.h) — round 1 shared one
-    shift pair across all depths, correlating NEE samples across bounces.
+    dimension via its ranking tiles, blue_noise.h) — one shift pair
+    across all depths would correlate NEE samples across bounces.
     ``dim`` is static (compile-time), as at every call site.
     """
     size = mask.shape[0]

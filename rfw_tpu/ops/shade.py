@@ -82,8 +82,8 @@ def fetch_texel_trilinear(atlas, desc, tex_id, uv, lam,
     desc: (T, L, 3) int32 (addr, width, height); tex_id: (R,) (assumed
     valid — callers mask unbound slots); lam: (R,) LOD lambda.
 
-    ``filter`` degrades quality for tap count (each tap is a ~7 ms HBM
-    gather per 518k lanes — config.texture_filter): "trilinear" 8 taps,
+    ``filter`` degrades quality for tap count (each tap is one gather —
+    config.texture_filter): "trilinear" 8 taps,
     "bilinear" 4 taps at the nearest mip, "nearest" 1 tap.
     """
     levels = desc.shape[1]
@@ -115,8 +115,7 @@ def fetch_texel_stochastic(atlas, desc, tex_id, uv, lam, seed):
     """ONE-tap stochastic trilinear: choose the mip with probability equal
     to the trilinear blend weight and the bilinear corner with
     probabilities (fx, fy) — the expectation is exactly the 8-tap
-    trilinear filter, for 1/8 the gather cost (each tap is a ~7 ms HBM
-    gather per 518k lanes; gathers dominate the shade stage). The added
+    trilinear filter, for 1/8 the gathers. The added
     noise is texture-frequency, averages out across spp like any MC
     estimator, and is far below path-tracing noise at low spp.
 
@@ -156,8 +155,7 @@ def fetch_merged_stochastic(matlas, desc, eid, uv, lam, seed):
     the stochastic-trilinear estimator (fetch_texel_stochastic) — mip and
     bilinear corner chosen with probability equal to their filter weight,
     so the expectation is exactly fetch_merged_trilinear's 8-tap result.
-    The cheapest possible textured shade on TPU: gathers are per-op, and
-    this is one op for all three maps. Returns ((diffuse, normal, rough)
+    One gather serves all three maps. Returns ((diffuse, normal, rough)
     each (R, 4) f32, new_seed)."""
     from . import rng as rng_mod
     levels = desc.shape[1]
@@ -184,9 +182,7 @@ def fetch_merged_stochastic(matlas, desc, eid, uv, lam, seed):
 def fetch_merged_trilinear(matlas, desc, eid, uv, lam):
     """Trilinear fetch from the merged material atlas (texture.py
     build_merged_material_atlas): ONE tap per corner serves the diffuse,
-    normal and roughness maps at once — 8 row gathers instead of 24, which
-    is the dominant shading cost on TPU (gather count, not bytes; measured
-    in tools/shade_opt.py).
+    normal and roughness maps at once — 8 row gathers instead of 24.
 
     matlas: (N, 3) u32 rows (word0 diffuse, word1 normal, word2 rough/metal).
     Returns (diffuse (R,4), normal (R,4), rough (R,4)) f32 in [0,1].
@@ -258,9 +254,8 @@ def get_shading_data(scene, prim, u, v, d, cone_width, tex_flags=None,
     prim = jnp.maximum(prim, 0)
     pk = scene.get("tri_pack")
     if pk is not None:
-        # ONE (R, 32) row gather for every per-triangle attribute —
-        # separate gathers cost ~6 ms EACH at 305k-row tables (per-op, not
-        # per-byte; tools/gather_pack_bench.py / scene_data.build_tri_pack)
+        # ONE (R, 32) row gather for every per-triangle attribute
+        # (scene_data.build_tri_pack)
         row = pk[prim]
         tri_n = row[:, 0:9].reshape(-1, 3, 3)
         tri_uv = row[:, 9:15].reshape(-1, 3, 2)
@@ -285,10 +280,9 @@ def get_shading_data(scene, prim, u, v, d, cone_width, tex_flags=None,
 
     mats = scene["materials"]
     # Pack ALL per-material parameters into one (M, 28) matrix in-jit
-    # (concat of tiny tables — free) and fetch with ONE row gather:
-    # ~18 separate (R,) gathers from a few-hundred-row table cost ~6 ms
-    # EACH on TPU (per-op, size-class-flat — the tri_pack lesson applied
-    # to materials; shading measured 144 ms/chunk, mostly these).
+    # (concat of tiny tables — free) and fetch with ONE row gather
+    # instead of ~18 separate (R,) gathers (the tri_pack layout applied
+    # to materials).
     f32 = jnp.float32
     cols = [mats["color"], mats["absorption"],
             mats["flags"].astype(f32)[:, None]]

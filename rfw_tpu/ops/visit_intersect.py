@@ -1,56 +1,29 @@
-"""Per-block exact visit-list Pallas intersector — THE flagship.
+"""Per-block exact visit-list intersector: a Pallas kernel through Triton.
 
-Replaced both prior TPU traversal strategies on the hot path in round 2
-(both DELETED in round 5, numbers in STATUS.md):
+The candidate unit is the per-256-ray-BLOCK **exact union** of crossed
+cells (K-triangle treelets of the spatial cut, ``bvh/wide.py``):
 
-* the super-cell envelope kernel culled per ray-block ENVELOPE (interval
-  arithmetic over the block's origins x directions). Coherent blocks are
-  fine; scattered bounce blocks pay ~102 candidate supers because the
-  envelope is the union of 256 rays' slabs made conservative.
-* the pair-expansion driver got exact per-ray candidates but paid
-  ~270 ms of XLA sorts per 518k-ray launch (enumerate row-sort,
-  pair-expansion sort, combine sort) against only ~120 ms of kernel
-  time.
-
-This module keeps the exactness and drops the sorts: the candidate unit is
-the per-256-ray-BLOCK **exact union** of crossed cells (or supers).
-
-1. **Enumerate (Pallas)**: a small kernel computes, per ray block, the
-   entry lower bound of every cell the block crosses — (256, T) slab
-   tiles live entirely in VMEM (an equivalent XLA map materializes the
-   (N, T, 3) product in HBM: 25 GB at 518k x 4096 — measured OOM).
+1. **Enumerate (XLA)**: per ray block, the entry lower bound of every
+   cell any of its rays crosses — an (N, T) slab test reduced over the
+   block's rays as a running (NB, T) minimum, so the (N, T) product never
+   reaches device memory.
 2. **Order (XLA)**: per block, candidates sort by packed
-   (quantized-entry, cell id) keys — a (NB, T) row sort, ~40x smaller
-   than the pair driver's 12.4M-element sorts.
-3. **Kernel (Pallas)**: per block, walk the visit list front-to-back; per
-   visit DMA one granule's Woop planes (G*16, K) HBM→VMEM (pipelined) and
-   dense-intersect all 256 rays, committing per-ray best (t, slot).
-   Early-exit once every ray's best hit precedes the next granule's entry
-   lower bound. Results come out in ray order — no combine pass.
-4. **Recull pass (driver)**: blocks whose union overflowed the visit cap
-   continue from an exact per-block watermark under the pass-tightened
-   horizon. Guarantees exactness without full scans.
+   (quantized-entry, cell id) keys — one (NB, T) row sort per launch.
+3. **Kernel (Pallas/Triton)**: one program per RB-ray quarter of a
+   block walks the block's visit list front to back; per visit it loads
+   one cell's Woop planes (plain loads — the whole table fits the L2),
+   intersects its RB rays with the cell's K triangles in KC-wide register
+   chunks, and keeps a per-ray running minimum (t, slot). It exits once
+   every ray's best hit precedes the next cell's entry lower bound
+   (closest) or every live ray is occluded (any-hit). Results come out in
+   ray order.
+4. **Recull passes (driver)**: blocks whose union overflows the visit
+   cap continue from the next window of the one-shot candidate table, so
+   the result is exact without full scans.
 
-The TPU answer to per-ray BVH traversal (reference mbvh_node.h:122-307,
-CUDAIntersect.h): traversal *order* lives in the block-level candidate
-tables; the lockstep VPU only ever runs dense (256, K) Woop tests
-(exact-f32 broadcast FMA — MXU matmuls at default precision flip
-closest-hit winners; at precision=HIGHEST they lose to VPU FMAs,
-measured 576 vs 394 ms in round 2).
-
-Measured-dead variants were REMOVED in round 4 (STATUS.md keeps the
-numbers): the two-phase mid-trace regroup v1/v2 (_trace_regroup +
-next_entries — 1124/588 ms vs 352/367 ms for the plain walk; the v1
-on-chip 'win' was the NaN-bitcast merge bug) and the two-level union
-restriction s_sub (on-chip 0.956-1.41x, tools history). Block
-formation is also at its floor: every parent-cell grouping key loses
-to the production octant|morton(dir)|morton(origin) compaction key
-(round-4 sortkey_cell_sim result in STATUS.md). Round 5 pinned the
-remaining constants — the inner loop runs within 6% of the VPU's pure
-FMA issue rate, division included (tools/r5_kernel_micro.py), and the
-sub-granularity/transposed/pair alternatives all measured slower
-(STATUS.md round-5 analysis) — so this architecture is the fixed point
-on this hardware.
+The triangle test is the Woop unit-triangle transform as exact-f32 FMAs
+(no matrix unit: TF32 would flip closest-hit winners); the winner is
+refined with Möller–Trumbore in ``closest_hit``.
 """
 
 from __future__ import annotations
@@ -61,25 +34,20 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..config import RenderConfig
 from .intersect import BIG_T, intersect_tri
 
-BLOCK = 256        # rays per block
-M_C = 128          # visit-list cap (granules per block per pass)
-PIPE = 8           # in-flight DMAs: per-visit compute is below the ~4 us
-#                    HBM latency; a deep pipeline keeps the DMA engine busy
+BLOCK = 256        # rays per visit block (one shared visit list)
+M_C = 128          # visit-list window (cells per block per pass)
+RB = 64            # rays per kernel program: a quarter of a block
+KC = 32            # triangles per in-register chunk of a cell
+NUM_WARPS = 4
 # recull passes run to the exact per-launch bound ceil(T_padded / M_C)
-# (all windows of the one-shot candidate table): a CONSTANT cap (16 in
-# round 2) silently treated rays in blocks whose visit list outruns
-# cap*M_C granules as misses — T already exceeds 16*128 = 2048 cells at
-# pica-4x scale (305k tris / 128 = ~2400), and conservative envelope
-# lists hit the cap in practice (tools/d0_stage_ab.py env rows drifted).
-# The while_loop still exits as soon as every ray is finished, so the
-# exact bound costs nothing on the common 1-2 pass path.
-ENUM_TILE = 1024   # granules per VMEM tile in the enumeration kernel
-EXIT_EVERY = 4     # visits between front-to-back exit reductions
+# (all windows of the one-shot candidate table): a constant cap would
+# silently treat rays in blocks whose visit list outruns cap*M_C cells as
+# misses. The while_loop still exits as soon as every ray is finished.
 _BIGKEY = np.float32(1 << 25)   # np: no backend init at import
 
 
@@ -88,87 +56,55 @@ def _cid_bits(t_c: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Phase 1: per-block entry bounds (Pallas — no HBM temps)
+# Phase 1: per-block entry bounds (XLA)
 # ---------------------------------------------------------------------------
 
-def _enum_kernel(t_dim: int,
-                 rays_ref,        # (64, BLOCK) — 8 ray blocks of 8 rows
-                 bounds_ref,      # (8, T) lo.xyz, hi.xyz, 0, 0
-                 entry_out):      # (8, T) — per-block entry lower bounds
-    # Each program computes 8 ray blocks and OWNS its whole output
-    # window. (A window shared across 8 programs — each writing one row —
-    # is clobbered by Pallas' whole-block write-back of write-only
-    # outputs.)
-    for blk in range(8):
-        rays = rays_ref[8 * blk:8 * blk + 8, :]
-        tm_col = rays[3:4, :].T                 # (BLOCK, 1)
-        o_col = []
-        inv_col = []
-        for ax in range(3):
-            o_col.append(rays[ax:ax + 1, :].T)  # (BLOCK, 1)
-            dax = rays[4 + ax:5 + ax, :].T
-            safe = jnp.where(jnp.abs(dax) < 1e-12,
-                             jnp.where(dax < 0, -1e-12, 1e-12), dax)
-            inv_col.append(1.0 / safe)
-
-        for s in range(0, t_dim, ENUM_TILE):
-            w = min(ENUM_TILE, t_dim - s)
-            ent = jnp.zeros((BLOCK, w), jnp.float32)
-            ext = jnp.full((BLOCK, w), 3e38, jnp.float32)
-            for ax in range(3):
-                b_lo = bounds_ref[ax:ax + 1, s:s + w]      # (1, w)
-                b_hi = bounds_ref[3 + ax:4 + ax, s:s + w]
-                t1 = (b_lo - o_col[ax]) * inv_col[ax]      # (BLOCK, w)
-                t2 = (b_hi - o_col[ax]) * inv_col[ax]
-                ent = jnp.maximum(ent, jnp.minimum(t1, t2))
-                ext = jnp.minimum(ext, jnp.maximum(t1, t2))
-            crossed = ent < jnp.minimum(ext, tm_col)
-            e = jnp.where(crossed, ent, 1e30)
-            entry_out[blk:blk + 1, s:s + w] = jnp.min(
-                e, axis=0, keepdims=True).reshape(1, w)
+ENUM_RAYS = 8      # rays per step of the enumeration loop
 
 
 @jax.jit
 def block_entries(rays8, bounds8):
-    """rays8 (NB*8, BLOCK) → (NB, T) per-block entry lower bounds."""
+    """rays8 (NB*8, BLOCK) → (NB, T) per-block entry lower bounds: the
+    least slab-entry distance over the block's rays that cross each cell
+    (1e30 where none does).
+
+    A loop over the block's rays, ENUM_RAYS per step, keeps a running
+    (NB, T) minimum: each step is one elementwise fusion. (The same
+    minimum written as one (NB, BLOCK, T) reduction took XLA's GPU
+    compiler over half an hour to compile.)"""
     nb = rays8.shape[0] // 8
-    t_dim = bounds8.shape[1]
-    pad_nb = (-nb) % 8
-    if pad_nb:   # one program computes 8 ray blocks
-        rays8 = jnp.pad(rays8, ((0, pad_nb * 8), (0, 0)))
-    kernel = functools.partial(_enum_kernel, t_dim)
-    interpret = jax.default_backend() == "cpu"
-    out = pl.pallas_call(
-        kernel,
-        interpret=interpret,
-        grid=((nb + pad_nb) // 8,),
-        in_specs=[
-            pl.BlockSpec((64, BLOCK), lambda b: (b, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((8, t_dim), lambda b: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((8, t_dim), lambda b: (b, 0),
-                               memory_space=pltpu.VMEM),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        out_shape=jax.ShapeDtypeStruct((nb + pad_nb, t_dim),
-                                       jnp.float32),
-    )(rays8, bounds8)
-    return out[:nb]
+    r = rays8.reshape(nb, 8, BLOCK)
+    bl, bh = bounds8[0:3][:, None, :], bounds8[3:6][:, None, :]  # (3,1,T)
+
+    def step(k, best):
+        rs = jax.lax.dynamic_slice_in_dim(r, k * ENUM_RAYS, ENUM_RAYS,
+                                          axis=2)       # (NB, 8, ENUM)
+        for j in range(ENUM_RAYS):
+            o = rs[:, 0:3, j].T[:, :, None]             # (3, NB, 1)
+            d = rs[:, 4:7, j].T[:, :, None]
+            inv = 1.0 / jnp.where(jnp.abs(d) < 1e-12,
+                                  jnp.where(d < 0, -1e-12, 1e-12), d)
+            t1 = (bl - o) * inv                         # (3, NB, T)
+            t2 = (bh - o) * inv
+            ent = jnp.maximum(jnp.max(jnp.minimum(t1, t2), axis=0), 0.0)
+            ext = jnp.min(jnp.maximum(t1, t2), axis=0)
+            crossed = ent < jnp.minimum(ext, rs[:, 3, j][:, None])
+            best = jnp.minimum(best, jnp.where(crossed, ent, 1e30))
+        return best
+
+    init = jnp.full((nb, bounds8.shape[1]), 1e30, jnp.float32)
+    return jax.lax.fori_loop(0, BLOCK // ENUM_RAYS, step, init)
 
 
 @jax.jit
 def block_entries_envelope(rays8, bounds8):
     """Per-BLOCK interval-envelope entry bounds: (NB, T) like
     ``block_entries`` but from NB×T slab tests instead of N×T — ~BLOCK×
-    fewer ops (the enum kernel is ~27 ms of a 44 ms coherent closest
-    launch). Conservative: envelope-crossed ⊇ any-ray-crossed and the
+    fewer ops. Conservative: envelope-crossed ⊇ any-ray-crossed and the
     entry value is a lower bound for every ray in the block, so
     front-to-back exit and recull watermarks stay exact; only the visit
     lists grow. Use for COHERENT streams (primary tiles, converging
-    shadow rays) — scattered blocks degrade to near-full scans (the
-    round-1 envelope-cull lesson, module doc)."""
+    shadow rays) — scattered blocks degrade to near-full scans."""
     nb = rays8.shape[0] // 8
     r = rays8.reshape(nb, 8, BLOCK)
     o = r[:, 0:3]                                  # (NB, 3, g)
@@ -213,21 +149,18 @@ def sort_candidates(b_entry, diag, m_c: int):
     """(NB, T) entries → (keys_all, counts_all): the FULL entry-sorted
     packed-key table, computed ONCE per launch.
 
-    Granule keys are geometric — an entry value depends only on the ray
+    Cell keys are geometric — an entry value depends only on the ray
     block's origins/directions, never on the per-pass horizons (a
-    tightened ``t_hi`` only *removes* granules from the crossed set) —
-    so the pass-0 table is a superset ordering that stays valid for
-    every recull pass: pass ``it`` consumes the window
-    ``[it*m_c, (it+1)*m_c)`` (see ``window_candidates``). Visiting a
-    granule the tightened horizon would have pruned is harmless (the
-    kernel's front-to-back exit skips it); *skipping* one never happens,
-    which is what makes windowed continuation exact. (A per-pass
-    re-enumeration with the cheap envelope instead is UNSOUND: envelope
-    keys lower-bound per-ray keys, so an unprocessed granule could dip
-    below the watermark and be skipped.)
+    tightened ``t_hi`` only *removes* cells from the crossed set) — so
+    the pass-0 table is a superset ordering that stays valid for every
+    recull pass: pass ``it`` consumes the window ``[it*m_c, (it+1)*m_c)``
+    (see ``window_candidates``). Visiting a cell the tightened horizon
+    would have pruned is harmless (the kernel's front-to-back exit skips
+    it); *skipping* one never happens, which is what makes windowed
+    continuation exact.
 
-    Keys pack the quantized entry with the granule id into exact-int f32
-    (< 2^24) — unique per granule. The table is padded to a multiple of
+    Keys pack the quantized entry with the cell id into exact-int f32
+    (< 2^24) — unique per cell. The table is padded to a multiple of
     ``m_c`` with invalid keys so window slices never clamp into valid
     entries."""
     t_c = b_entry.shape[1]
@@ -249,7 +182,7 @@ def sort_candidates(b_entry, diag, m_c: int):
 
 def window_candidates(keys_all, counts_all, it, diag, m_c: int, t_c: int):
     """Pass ``it``'s visit window: (ids, counts, tnears, next_tnear).
-    ``next_tnear`` is the entry lower bound of each block's FIRST granule
+    ``next_tnear`` is the entry lower bound of each block's FIRST cell
     beyond this window (BIG_T when exhausted) — a ray whose best hit
     precedes it cannot be beaten by any later pass."""
     cb = _cid_bits(t_c)
@@ -270,181 +203,86 @@ def window_candidates(keys_all, counts_all, it, diag, m_c: int, t_c: int):
     return ids, counts, tnears, next_tnear
 
 
-def order_candidates(b_entry, win_key, diag, m_c: int):
-    """(NB, T) entries → (ids, counts, overflow, tnears, keys), restricted
-    to packed key ≥ ``win_key`` (per-block watermark for recull passes).
-
-    Keys pack the quantized entry with the granule id into exact-int f32
-    (< 2^24) — unique per granule, so watermark continuation is exact.
-    """
-    t_c = b_entry.shape[1]
-    cb = _cid_bits(t_c)
-    qmax = (1 << (24 - cb)) - 1
-    q = jnp.minimum(jnp.floor(b_entry * (qmax / diag)), jnp.float32(qmax))
-    q = jnp.maximum(q, 0.0)
-    cid = jnp.arange(t_c, dtype=jnp.float32)[None]
-    key = q * (1 << cb) + cid
-    key = jnp.where((b_entry < BIG_T) & (key >= win_key[:, None]),
-                    key, _BIGKEY)
-    keys = jax.lax.sort(key, dimension=-1)[:, :m_c]
-    counts = jnp.sum(key < _BIGKEY, axis=-1).astype(jnp.int32)
-    ids = jnp.where(keys < _BIGKEY,
-                    keys.astype(jnp.int32) & ((1 << cb) - 1), t_c)
-    gran = diag / qmax
-    tnears = jnp.where(keys < _BIGKEY,
-                       jnp.floor(keys / (1 << cb)) * gran, BIG_T)
-    return ids, jnp.minimum(counts, m_c), counts > m_c, tnears, keys
-
-
 # ---------------------------------------------------------------------------
 # Phase 3: the visit kernel
 # ---------------------------------------------------------------------------
 
-def _visit_kernel(super_g: int, k_size: int, m_c: int, t_epsilon: float,
-                  any_hit: bool,
-                  # SMEM (windowed over 8 grid rows)
-                  ids_ref, counts_ref, tnears_ref,
-                  # VMEM
-                  rays_ref,            # (8, BLOCK) ox,oy,oz,tmax,dx,dy,dz,0
-                  wg_hbm,              # (T, G*16, K) Woop planes per granule
-                  # outputs (lane-major rows)
-                  t_out, slot_out,
-                  # scratch
-                  btk_s, bgk_s, wp_s, sems):
-    """Per-visit commit is a 3-op elementwise running minimum over a
-    (BLOCK, K) lane matrix — the ~15-op min+argmin reduction pair the
-    first version paid per visit runs ONCE per block at the end, and the
-    front-to-back exit reduction is amortized over EXIT_EVERY visits
-    (stale per-ray bounds are conservative: exit fires a little later,
-    never wrongly)."""
-    row = jnp.remainder(pl.program_id(0), 8)
-    n_step = counts_ref[row, 0]
-
-    rays = rays_ref[:]
-    t_max0 = rays[3:4, :].T                   # (BLOCK, 1)
-    ones = jnp.ones((1, BLOCK), jnp.float32)
-    o4 = jnp.concatenate([rays[0:3, :], ones], axis=0)
-    d3 = rays[4:7, :]
-
-    btk_s[:] = jnp.broadcast_to(t_max0, (BLOCK, k_size))
-    bgk_s[:] = jnp.zeros((BLOCK, k_size), jnp.int32)
+def _visit_kernel(super_g: int, k_size: int, k_pad: int, kc: int, m_c: int,
+                  t_epsilon: float, any_hit: bool,
+                  ids_ref,        # (1, M_C) this block's visit list
+                  counts_ref,     # (1, 1)
+                  tnears_ref,     # (1, M_C) entry lower bound per visit
+                  rays_ref,       # (8, RB) ox,oy,oz,tmax,dx,dy,dz,0
+                  wg_ref,         # (T, G*16, K_pad) Woop planes per cell
+                  t_out, slot_out):   # (RB,)
+    """One program = RB rays of one visit block. Per visit and per
+    KC-lane chunk: 9 FMA rows, one divide, four compares and a row
+    minimum over (RB, KC) registers; the per-ray best (t, slot) is the
+    only loop-carried state."""
+    n_step = counts_ref[0, 0]
+    n_gran = wg_ref.shape[0]
+    t_max0 = rays_ref[3, :]
+    o = [rays_ref[ax, :][:, None] for ax in range(3)]          # (RB, 1)
+    d = [rays_ref[4 + ax, :][:, None] for ax in range(3)]
 
     def gid(i):
-        # clamp twice: into the live prefix of the list (exhausted lists
-        # re-test their last granule — idempotent), and to a real granule
-        # id (an empty list's slot 0 holds the invalid id t_c)
+        # clamp into the live prefix of the list and to a real cell id
+        # (an empty list's slot 0 holds the invalid id t_c)
         j = jnp.clip(jnp.minimum(i, n_step - 1), 0, m_c - 1)
-        return jnp.minimum(ids_ref[row, j], wg_hbm.shape[0] - 1)
-
-    def tnear_of(i):
-        return tnears_ref[row, jnp.minimum(i, m_c - 1)]
-
-    def dma(slot, g):
-        return pltpu.make_async_copy(
-            wg_hbm.at[g], wp_s.at[slot], sems.at[slot])
-
-    for k in range(PIPE - 1):
-        @pl.when(k < n_step)
-        def _(k=k):
-            dma(k, gid(k)).start()
+        return jnp.minimum(ids_ref[0, j], n_gran - 1)
 
     def body(state):
-        i, _ = state
-        slot = jnp.remainder(i, PIPE)
-
-        @pl.when(i + PIPE - 1 < n_step)
-        def _():
-            dma(jnp.remainder(i + PIPE - 1, PIPE), gid(i + PIPE - 1)).start()
-
-        dma(slot, gid(i)).wait()
-
+        i, _, best_t, best_s = state
         cur = gid(i)
-        wp = wp_s[slot]                       # (G*16, K)
-
         for j in range(super_g):
-            base = 16 * j
+            for c0 in range(0, k_pad, kc):
+                rows = [wg_ref[cur, 16 * j + r, pl.ds(c0, kc)][None, :]
+                        for r in range(12)]                    # (1, KC)
 
-            def xf_o(r0):   # [o, 1] · rows → 3 FMA + 1 add
-                acc = wp[base + r0 + 3:base + r0 + 4, :] \
-                    + o4[0:1, :].T * wp[base + r0:base + r0 + 1, :]
-                for q in range(1, 3):
-                    acc = acc + (o4[q:q + 1, :].T
-                                 * wp[base + r0 + q:
-                                      base + r0 + q + 1, :])
-                return acc                    # (BLOCK, K)
+                def xf(r0):   # ([o, 1] · rows, [d, 0] · rows)
+                    ov = (rows[r0 + 3] + o[0] * rows[r0]
+                          + o[1] * rows[r0 + 1] + o[2] * rows[r0 + 2])
+                    dv = (d[0] * rows[r0] + d[1] * rows[r0 + 1]
+                          + d[2] * rows[r0 + 2])
+                    return ov, dv                              # (RB, KC)
 
-            def xf_d(r0):   # [d, 0] · rows → the 4th term is exactly 0
-                acc = d3[0:1, :].T * wp[base + r0:base + r0 + 1, :]
-                for q in range(1, 3):
-                    acc = acc + (d3[q:q + 1, :].T
-                                 * wp[base + r0 + q:
-                                      base + r0 + q + 1, :])
-                return acc                    # (BLOCK, K)
-
-            ou, du = xf_o(0), xf_d(0)
-            ov, dv = xf_o(4), xf_d(4)
-            ow, dw = xf_o(8), xf_d(8)
-            valid = jnp.abs(dw) > 1e-12
-            t = -ow / jnp.where(valid, dw, 1.0)
-            u = ou + t * du
-            v = ov + t * dv
-            hit = (valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                   & (t > t_epsilon))
-            t_hit = jnp.where(hit, t, 1e30)
-            bt_h = btk_s[:]
-            upd = t_hit < bt_h            # strict: earliest visit wins
-            btk_s[:] = jnp.where(upd, t_hit, bt_h)
-            bgk_s[:] = jnp.where(upd, cur * super_g + j, bgk_s[:])
-
-        import os
-        if os.environ.get("RFW_VISIT_NOEXIT"):   # perf/correctness bisect
-            done = jnp.bool_(False)
+                ou, du = xf(0)
+                ov, dv = xf(4)
+                ow, dw = xf(8)
+                valid = jnp.abs(dw) > 1e-12
+                t = -ow / jnp.where(valid, dw, 1.0)
+                u = ou + t * du
+                v = ov + t * dv
+                hit = (valid & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                       & (t > t_epsilon))
+                t_hit = jnp.where(hit, t, 1e30)
+                m = jnp.min(t_hit, axis=1)
+                lane = jnp.argmin(t_hit, axis=1).astype(jnp.int32)
+                upd = m < best_t        # strict: earliest visit wins
+                best_t = jnp.where(upd, m, best_t)
+                best_s = jnp.where(
+                    upd, (cur * super_g + j) * k_size + c0 + lane, best_s)
+        if any_hit:
+            # (a max over int32: Triton lowers no boolean reduction)
+            done = jnp.max(((best_t >= t_max0) & (t_max0 > 0))
+                           .astype(jnp.int32)) == 0
         else:
-            def check():
-                bt = jnp.min(btk_s[:], axis=1, keepdims=True)
-                if any_hit:
-                    d_s = ~jnp.any((bt >= t_max0) & (t_max0 > 0))
-                else:
-                    # front-to-back: once every ray's best precedes
-                    # the next granule's entry lower bound, no later
-                    # granule can win
-                    d_s = jnp.max(bt) <= tnear_of(i + 1)
-                return d_s | (i + 1 >= n_step)
-
-            done = jax.lax.cond(
-                jnp.remainder(i, EXIT_EVERY) == EXIT_EVERY - 1,
-                check, lambda: jnp.bool_(False))
-        return i + 1, done
+            # front to back: once every ray's best precedes the next
+            # cell's entry lower bound, no later cell can win
+            done = jnp.max(best_t) <= tnears_ref[0, jnp.minimum(i + 1,
+                                                                m_c - 1)]
+        return i + 1, done, best_t, best_s
 
     def cond(state):
-        i, done = state
+        i, done, _, _ = state
         return (i < n_step) & ~done
 
-    i_end, _ = jax.lax.while_loop(cond, body,
-                                  (jnp.int32(0), jnp.bool_(False)))
-
-    for k in range(PIPE - 1):   # drain in-flight DMAs on early exit
-        @pl.when(i_end + k < n_step)
-        def _(k=k):
-            dma(jnp.remainder(i_end + k, PIPE), gid(i_end + k)).wait()
-
-    # one reduction pair per BLOCK: best t, its lane, that lane's cell
-    btk = btk_s[:]
-    tmin = jnp.min(btk, axis=1, keepdims=True)              # (BLOCK, 1)
-    kbest = jnp.argmin(btk, axis=1, keepdims=True).astype(jnp.int32)
-    lane = jax.lax.broadcasted_iota(jnp.int32, (BLOCK, k_size), 1)
-    gbest = jnp.max(jnp.where(lane == kbest, bgk_s[:], -1),
-                    axis=1, keepdims=True)                  # (BLOCK, 1)
-    found = tmin < t_max0
-    slot_v = jnp.where(found, gbest * k_size + kbest, -1)
-
-    # lane-major output rows: (BLOCK, 1) scratch → (8, BLOCK) broadcast
-    # streams contiguously (minor-dim-8 output blocks DMA as 32 B
-    # segments — ~5 us/program of pure fixed cost, measured round 1)
-    t_out[0, :, :] = jnp.broadcast_to(
-        jnp.where(found, tmin, t_max0).reshape(1, BLOCK), (8, BLOCK))
-    slot_out[0, :, :] = jnp.broadcast_to(
-        slot_v.reshape(1, BLOCK), (8, BLOCK))
+    _, _, best_t, best_s = jax.lax.while_loop(
+        cond, body, (jnp.int32(0), jnp.bool_(False), t_max0,
+                     jnp.zeros(t_max0.shape, jnp.int32)))
+    found = best_t < t_max0
+    t_out[:] = jnp.where(found, best_t, t_max0)
+    slot_out[:] = jnp.where(found, best_s, -1)
 
 
 @functools.partial(jax.jit, static_argnames=("super_g", "k_size",
@@ -453,58 +291,37 @@ def _run_visit_kernel(rays8, ids, counts, tnears, wgran,
                       super_g: int, k_size: int, t_epsilon: float,
                       any_hit: bool):
     """rays8 (NB*8, BLOCK); ids/tnears (NB, M); counts (NB,).
-    Returns per-ray (t, slot) in block-ray order."""
-    nb = ids.shape[0]
-    m_c = ids.shape[1]
-    pad_nb = (-nb) % 8
-    if pad_nb:
-        ids = jnp.pad(ids, ((0, pad_nb), (0, 0)))
-        counts = jnp.pad(counts, (0, pad_nb))
-        tnears = jnp.pad(tnears, ((0, pad_nb), (0, 0)))
-    in_specs = [
-        pl.BlockSpec((8, m_c), lambda b: (b // 8, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((8, 1), lambda b: (b // 8, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((8, m_c), lambda b: (b // 8, 0),
-                     memory_space=pltpu.SMEM),
-        pl.BlockSpec((8, BLOCK), lambda b: (b, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec(memory_space=pl.ANY),
-    ]
-    out_specs = [
-        pl.BlockSpec((1, 8, BLOCK), lambda b: (b, 0, 0),
-                     memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, 8, BLOCK), lambda b: (b, 0, 0),
-                     memory_space=pltpu.VMEM),
-    ]
-    kernel = functools.partial(_visit_kernel, super_g, k_size, m_c,
-                               t_epsilon, any_hit)
-    import os
-    interpret = (jax.default_backend() == "cpu"
-                 or bool(os.environ.get("RFW_VISIT_INTERP")))
-    wp_shape = (PIPE, super_g * 16, k_size)
-    sem_shape = (PIPE,)
+    Returns per-ray (t, slot) in block-ray order. Interpreted only on the
+    CPU backend (tests); compiled through Triton everywhere else."""
+    nb, m_c = ids.shape
+    kc = min(KC, 1 << max(k_size - 1, 0).bit_length())
+    k_pad = -(-k_size // kc) * kc
+    if k_pad != k_size:   # all-zero planes: |dw| = 0 never hits
+        wgran = jnp.pad(wgran, ((0, 0), (0, 0), (0, k_pad - k_size)))
+    sub = BLOCK // RB
+    kernel = functools.partial(_visit_kernel, super_g, k_size, k_pad, kc,
+                               m_c, t_epsilon, any_hit)
     t, slot = pl.pallas_call(
         kernel,
-        interpret=interpret,
-        grid=(nb,),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",)),
-        scratch_shapes=[
-            pltpu.VMEM((BLOCK, k_size), jnp.float32),
-            pltpu.VMEM((BLOCK, k_size), jnp.int32),
-            pltpu.VMEM(wp_shape, jnp.float32),
-            pltpu.SemaphoreType.DMA(sem_shape),
+        backend="triton",
+        interpret=jax.default_backend() == "cpu",
+        name="visit_any_hit" if any_hit else "visit_closest",
+        grid=(nb * sub,),
+        in_specs=[
+            pl.BlockSpec((1, m_c), lambda p: (p // sub, 0)),
+            pl.BlockSpec((1, 1), lambda p: (p // sub, 0)),
+            pl.BlockSpec((1, m_c), lambda p: (p // sub, 0)),
+            pl.BlockSpec((8, RB), lambda p: (p // sub, p % sub)),
+            pl.BlockSpec(memory_space=pl.ANY),
         ],
-        out_shape=[
-            jax.ShapeDtypeStruct((nb, 8, BLOCK), jnp.float32),
-            jax.ShapeDtypeStruct((nb, 8, BLOCK), jnp.int32),
-        ],
+        out_specs=[pl.BlockSpec((RB,), lambda p: (p,)),
+                   pl.BlockSpec((RB,), lambda p: (p,))],
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        out_shape=[jax.ShapeDtypeStruct((nb * BLOCK,), jnp.float32),
+                   jax.ShapeDtypeStruct((nb * BLOCK,), jnp.int32)],
     )(ids, counts.reshape(-1, 1), tnears, rays8, wgran)
-    return t[:, 0, :].reshape(-1), slot[:, 0, :].reshape(-1)
+    return t, slot
 
 
 # ---------------------------------------------------------------------------
@@ -533,25 +350,11 @@ def _pad_rays(origins, directions, t_max):
     return origins, directions, t_max, r
 
 
-def _sorted(tl, origins, directions, t_max):
-    from .compaction import ray_sort_keys
-    lo = tl["scene_lo"] if "scene_lo" in tl else tl["bmin"].min(axis=0)
-    hi = tl["scene_hi"] if "scene_hi" in tl else tl["bmax"].max(axis=0)
-    keys = ray_sort_keys(origins, directions, lo, hi)
-    keys = keys + jnp.where(t_max <= 0, jnp.uint32(1) << 28, 0).astype(
-        jnp.uint32)
-    order = jnp.argsort(keys).astype(jnp.int32)
-    inv = jnp.argsort(order).astype(jnp.int32)
-    return order, inv
-
-
 def _sort_carry_in(tl, origins, directions, t_max):
     """Coherence-sort rays by carrying them THROUGH one multi-operand
-    ``lax.sort`` instead of argsort + row gathers (measured 15.3 vs
-    28.1 ms per 1M-lane round trip, tools/compact_ab.py d/e — merge sort
-    streams; row gathers are per-row-descriptor-bound). A lane iota as
-    the second sort key makes the order exactly the stable argsort order,
-    so results are bitwise-identical to the gather path. Returns sorted
+    ``lax.sort`` instead of argsort + row gathers. A lane iota as the
+    second sort key makes the order exactly the stable argsort order, so
+    results are bitwise-identical to the gather path. Returns sorted
     (o, d, t_max, lane); un-permute results with ``_sort_carry_out``."""
     from .compaction import ray_sort_keys
     lo = tl["scene_lo"] if "scene_lo" in tl else tl["bmin"].min(axis=0)
@@ -578,7 +381,7 @@ def _sort_carry_out(lane, *cols):
 
 
 def _granularity(tl, config: RenderConfig):
-    """Visit-granule tables: ('cell': one K-tri cell per DMA/visit) or
+    """Visit-granule tables: ('cell': one K-tri cell per visit) or
     ('super': SUPER_G consecutive cells — fewer, fatter visits)."""
     k_size = int(tl["wplanes"].shape[2])
     if config.visit_granularity == "super":
@@ -615,9 +418,11 @@ def _trace(scene, origins, directions, t_max, config: RenderConfig,
     # geometric, so recull passes just consume successive windows)
     t_hi0 = jnp.where(t_max <= 0, 0.0, t_max)
     rays8_0 = _pack_rays8(origins, directions, t_hi0)
-    b_entry = (block_entries_envelope(rays8_0, bounds8)
-               if coherent else block_entries(rays8_0, bounds8))
-    keys_all, counts_all = sort_candidates(b_entry, diag, M_C)
+    with jax.named_scope("visit_enumerate"):
+        b_entry = (block_entries_envelope(rays8_0, bounds8)
+                   if coherent else block_entries(rays8_0, bounds8))
+    with jax.named_scope("visit_sort"):
+        keys_all, counts_all = sort_candidates(b_entry, diag, M_C)
 
     def one_pass(state):
         it, best_t, best_slot, finished = state
@@ -634,15 +439,13 @@ def _trace(scene, origins, directions, t_max, config: RenderConfig,
         # commit ONLY actual new hits: finished blocks run later passes
         # with t_hi = 0 and return (t = 0, slot = -1) — without the
         # s_row >= 0 guard that "0 < best_t" would clobber every
-        # previously committed hit (the round-2 TPU 38%-missed-hits bug:
-        # coherent streams never multi-pass, so only scattered streams
-        # exposed it)
+        # previously committed hit
         better = (s_row >= 0) & (t_row < jnp.minimum(best_t, t_max))
         new_t = jnp.where(better, t_row, best_t)
         new_slot = jnp.where(better, s_row, best_slot)
         # a ray is done when its block's window list is exhausted, when
         # its best hit precedes the next window's first entry bound
-        # (front-to-back: no later granule can beat it), or — for
+        # (front-to-back: no later cell can beat it), or — for
         # occlusion — as soon as anything hit.
         overflow = counts_all > (it + 1) * M_C
         blk_of = jnp.repeat(overflow, BLOCK)[:n]
@@ -654,8 +457,6 @@ def _trace(scene, origins, directions, t_max, config: RenderConfig,
         return it + 1, new_t, new_slot, fin
 
     # exact pass bound: every window of the one-shot candidate table
-    # (see the module constant note — a fixed cap silently missed hits
-    # in blocks whose list outruns cap*M_C granules)
     n_windows = keys_all.shape[1] // M_C
 
     def cond(state):
@@ -675,20 +476,8 @@ def closest_hit(scene, origins, directions, config: RenderConfig,
     additionally enables the per-block envelope enumeration (valid with
     or without the internal sort — blocks are whatever order the stream
     lands in; callers set it when blocks are TIGHT: primary tiles,
-    light-converging shadow rays. Compaction-sorted bounce closest
-    measured faster with per-ray enumeration)."""
-    return closest_hit_driver(_trace, scene, origins, directions,
-                              config, t_max, sort, coherent)
-
-
-def closest_hit_driver(trace_fn, scene, origins, directions, config,
-                       t_max, sort, coherent):
-    """Shared closest-hit wrapper around a ``_trace(scene, o, d, tm,
-    config, any_hit, coherent) -> (t, slot)`` implementation: coherence
-    sort-carry in, ray padding, slot→prim mapping, Möller–Trumbore
-    winner refinement, sort-carry out. Serves this module and
-    tvisit_intersect (same padded slot space) so the refinement
-    contract lives in exactly one place."""
+    light-converging shadow rays). The winner is refined with
+    Möller–Trumbore in exact f32."""
     tl = scene["treelets"]
     n = origins.shape[0]
     if t_max is None:
@@ -699,14 +488,13 @@ def closest_hit_driver(trace_fn, scene, origins, directions, config,
         origins, directions, t_max, lane = _sort_carry_in(
             tl, origins, directions, t_max)
     o, d, tm, r = _pad_rays(origins, directions, t_max)
-    t, slot = trace_fn(scene, o, d, tm, config, any_hit=False,
-                       coherent=coherent)
+    t, slot = _trace(scene, o, d, tm, config, any_hit=False,
+                     coherent=coherent)
     t, slot = t[:r], slot[:r]
     found = slot >= 0
     prim = jnp.where(found, tl["slot_to_prim"][jnp.maximum(slot, 0)], -1)
     found = found & (prim >= 0)
 
-    # Möller–Trumbore refinement of the winner (exact-f32 precision)
     tv = tl["verts"][jnp.maximum(slot, 0)]
     rhit, rt, ru, rv = intersect_tri(
         o[:r], d[:r], tv[:, 0], tv[:, 1] - tv[:, 0],
@@ -717,22 +505,12 @@ def closest_hit_driver(trace_fn, scene, origins, directions, config,
     v = jnp.where(found & rhit, rv, 0.0)
     if lane is None:
         return t, prim, u, v
-    # un-permute by sorting the results back by lane id (sort-carry both
-    # ways — cheaper than argsort + row gathers, tools/compact_ab.py d/e)
-    t, prim, u, v = _sort_carry_out(lane, t, prim, u, v)
-    return t, prim, u, v
+    return _sort_carry_out(lane, t, prim, u, v)
 
 
 def any_hit(scene, origins, directions, dist, config: RenderConfig,
             sort: bool = True, coherent: bool = False):
     """Occlusion: True where something lies closer than ``dist``."""
-    return any_hit_driver(_trace, scene, origins, directions, config,
-                          dist, sort, coherent)
-
-
-def any_hit_driver(trace_fn, scene, origins, directions, config, dist,
-                   sort, coherent):
-    """Shared occlusion wrapper (see closest_hit_driver)."""
     tl = scene["treelets"]
     n = origins.shape[0]
     dist = jnp.broadcast_to(dist, (n,))
@@ -741,12 +519,11 @@ def any_hit_driver(trace_fn, scene, origins, directions, config, dist,
         origins, directions, dist, lane = _sort_carry_in(
             tl, origins, directions, dist)
     o, d, tm, r = _pad_rays(origins, directions, dist)
-    t, slot = trace_fn(scene, o, d, tm, config, any_hit=True,
-                       coherent=coherent)
+    _, slot = _trace(scene, o, d, tm, config, any_hit=True,
+                     coherent=coherent)
     slot = slot[:r]
-    hit = slot >= 0
     occluded = jnp.where(
-        hit, tl["slot_to_prim"][jnp.maximum(slot, 0)], -1) >= 0
+        slot >= 0, tl["slot_to_prim"][jnp.maximum(slot, 0)], -1) >= 0
     if lane is None:
         return occluded
     # carry as i32 (PRED-typed sort operands are backend-fragile)

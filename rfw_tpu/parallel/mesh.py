@@ -1,8 +1,8 @@
 """Device-mesh helpers.
 
 The reference is strictly single-device (SURVEY §2.9); multi-chip is a new
-capability of the rebuild: image tiles shard across chips over ICI, the
-scene replicates (it's MBs, not GBs). This module owns mesh construction so
+capability of the rebuild: image tiles shard across devices, the scene
+replicates (it's MBs, not GBs). This module owns mesh construction so
 engines/tests/bench share one convention: a 1-D mesh over all local devices
 with axis name "tiles".
 """

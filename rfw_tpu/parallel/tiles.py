@@ -2,9 +2,9 @@
 
 The rebuild's answer to SURVEY §2.9's "multi-GPU: absent": each chip traces
 a contiguous row block of the pixel domain (scene + BVH replicated — MBs),
-then the framebuffer is assembled with an all-gather over ICI and per-stage
-ray counters are reduced with psum. This is BASELINE config 5 (Sponza-class
-1080p tiled across v5e-8).
+then the framebuffer is assembled with an all-gather and per-stage ray
+counters are reduced with psum (XLA hands both to NCCL on GPUs). This is
+BASELINE config 5 (Sponza-class 1080p tiled across several cards).
 
 Everything here is shape-polymorphic in the device count, and runs on the
 CPU with ``XLA_FLAGS=--xla_force_host_platform_device_count=N`` for tests —
@@ -69,7 +69,7 @@ def make_tiled_renderer(mesh, width: int, height: int,
 def make_engine_step(mesh, width: int, height: int, config: RenderConfig,
                      intersector: Intersector, tex_flags=None):
     """Multi-chip step with the ENGINE step contract — the product-ABI
-    route (VERDICT r1 next #3): ``RenderConfig.n_devices > 1`` makes
+    route: ``RenderConfig.n_devices > 1`` makes
     PathTracerEngine.render_frame call this instead of the single-chip
     driver, so ``RenderSystem(..., config)`` is all a user touches.
 
@@ -127,11 +127,11 @@ def make_driver_engine_step(mesh, width: int, height: int,
                             intersector: Intersector, tex_flags=None,
                             chunk: int | None = None):
     """Multi-chip step running the FLAGSHIP compacted wavefront program
-    per chip (VERDICT r2 next #4 — the fused ``make_engine_step`` left
+    per chip (the fused ``make_engine_step`` left
     BASELINE config 5 on the slow single-dispatch path). Each tile runs
     ``wavefront_driver.make_sample_body`` on its contiguous row block:
     per-depth lane compaction, traced live-count chunk trips, zero host
-    syncs — then one ICI all-gather assembles the frame and psum reduces
+    syncs — then one all-gather assembles the frame and psum reduces
     the per-depth stats. RNG is absolute-pixel-id keyed and the sample
     body restores row-major order per tile, so tiled == single-device
     per pixel (tests/test_parallel.py)."""

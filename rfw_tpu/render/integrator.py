@@ -5,16 +5,16 @@ CUDART/src/Context.cpp:65-159 + shade kernel Kernels.cu:571-794 — with the
 stage structure preserved (ray-gen → [intersect → shade → NEE/occlude] per
 bounce) but atomic queues replaced by masks: every pixel's path lives at a
 fixed lane, dead lanes are masked out. XLA fuses the masked stages; the
-Pallas intersector (ops/visit_intersect.py) does the heavy traversal.
+injected intersector does the heavy traversal.
 
 The integrator is engine-agnostic: engines inject an ``intersector`` (a pair
 of closest/occluded callables), which is how one integrator serves the
-bruteforce / megakernel(BVH) / wavefront(Pallas) engines — the rebuild's
+bruteforce / megakernel(BVH) / wavefront engines — the rebuild's
 answer to the reference's seven backends sharing one BSDF/shading header set.
 
-Round-2 structure: the per-depth loop body is the standalone
-``depth_stage`` over an explicit ``PathState``. ``trace_sample`` composes
-the stages inside one jit (the fused path, identical numerics to round 1);
+Structure: the per-depth loop body is the standalone ``depth_stage`` over
+an explicit ``PathState``. ``trace_sample`` composes the stages inside one
+jit (the fused path);
 ``render/wavefront_driver.py`` composes the same stages with lane
 COMPACTION between depths (the reference's atomic-queue wavefront
 compaction, Kernels.cu:640,747,788, re-expressed as sort/gather — RNG is
@@ -207,10 +207,9 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
     ``depth_t`` (optional) is a TRACED depth scalar: ONE compiled body
     then serves every bounce depth 1..max_path_length — the main XLA
     compile-time lever (one-jit whole-sample programs otherwise inline
-    max_path_length copies of this stage; setup+compile was 1244 s at
-    1080p in round 2). When given, ``depth`` acts only as the static
-    template class (must be >= 1; primary rays keep the static depth-0
-    body) and every depth-dependent value is computed from ``depth_t``:
+    max_path_length copies of this stage). When given, ``depth`` acts
+    only as the static template class (must be >= 1; primary rays keep
+    the static depth-0 body) and every depth-dependent value is computed from ``depth_t``:
     RNG stream seeds, blue-noise dimension constants (via static per-depth
     tables indexed by depth_t — bitwise-identical to the static bodies),
     env-NEE / MIS gates (traced masks over a fixed launch shape), and
@@ -227,9 +226,8 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
     # Stage-truncation profiling hook (§5 tracing): RFW_STAGE_TRUNC=k
     # cuts this stage after phase k (1 closest, 2 shading data,
     # 3 emissive/sky, 4 NEE math pre-occlusion, 5 NEE+occlusion) so
-    # per-phase device cost is attributable by differencing
-    # (tools/stage_trunc.py). Read at TRACE time — rebuild the jit after
-    # changing it. 0 (default) = off.
+    # per-phase device cost is attributable by differencing. Read at
+    # TRACE time — rebuild the jit after changing it. 0 (default) = off.
     _STAGE_TRUNC = int(os.environ.get("RFW_STAGE_TRUNC", "0"))
     bsdf = get_bsdf(config.bsdf)
     clamp_v = jnp.float32(config.firefly_clamp)
@@ -507,8 +505,8 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
                 # interleaved sampling with PER-TILE evaluation: only
                 # ceil(W/tb)*ceil(H/tb) distinct env samples exist, so the
                 # inverse-CDF searchsorted (a ~17-step binary-search gather
-                # chain over the 131k-texel CDF — measured ~960 ms/sample
-                # at 1080p when run per LANE) runs on the tiny tile table;
+                # chain over the 131k-texel CDF) runs on the tiny tile
+                # table instead of per lane;
                 # lanes fetch their tile's (dir, pdf, radiance) with ONE
                 # row gather. Bitwise-identical to the per-lane original:
                 # the tile seed recipe is unchanged.
@@ -576,31 +574,19 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
                 stats["shadow_count"] = stats["shadow_count"] \
                     + jnp.sum(e_want)
             # one fused occlusion launch for light + envmap shadow rays
-            # (halves per-call overhead). Depth 0 routing, measured in the
-            # PRODUCTION stage (tools/d0_stage_ab.py, d0 x4 at 1080p):
-            #   unsorted + per-ray enum   706.7 ms  <- default (bitwise ==
-            #   sorted + per-ray enum     749.5 ms     the sorted launch:
-            #   sorted + envelope        1155.1 ms     under interleave=256
-            #   unsorted + envelope      2443.7 ms     each block is one
-            # 16x16 tile sharing ONE env direction, and light rays
+            # (halves per-call overhead). Depth 0 is launched unsorted
+            # with per-ray enumeration: under interleave=256 each block
+            # is one 16x16 tile sharing ONE env direction, and light rays
             # converge — blocks arrive coherent, so the global 2n sort is
-            # pure overhead. (An older "11.4 s/sample with sort=False"
-            # note predates interleaving: env dirs were random PER LANE
-            # then.) Envelope enumeration loses at d0 occlusion AND its
-            # conservative near-full visit lists can exhaust
-            # MAX_PASSES x M_C on scattered blocks (the env rows above
-            # show real radiance drift) — per-ray enum stays.
+            # overhead, and the envelope enumeration's conservative lists
+            # grow near-full on the scattered rows.
             # Bounce depths (scattered origins) keep the sorted launch.
-            # RFW_D0_OCCL_SORT / RFW_D0_OCCL_ENV re-enable for A/Bs.
-            _occ_env = bool(os.environ.get("RFW_D0_OCCL_ENV"))
-            _sort0 = bool(os.environ.get("RFW_D0_OCCL_SORT"))
             occ2 = intersector.occluded(
                 scene,
                 jnp.concatenate([s_origin, s_origin]),
                 jnp.concatenate([l_dir, e_dir]),
                 jnp.concatenate([s_dist, jnp.where(e_want, 1e30, 0.0)]),
-                sort=depth > 0 or _sort0,
-                coherent=depth == 0 and _occ_env)
+                sort=depth > 0, coherent=False)
             occ, e_occ = occ2[:n], occ2[n:]
             radiance = radiance + jnp.where(
                 (want_shadow & ~occ)[..., None], nee, 0.0)
@@ -608,16 +594,12 @@ def depth_stage(scene, view, state: PathState, width: int, depth: int,
                 (e_want & ~e_occ)[..., None], e_contrib, 0.0)
         else:
             # depth-0 shadow rays start at pixel-ordered (coherent) hit
-            # points — skip the sort there (and use the envelope enum;
-            # tools/env_d0_ab.py); bounce origins are compaction-sorted
-            # (coherent by origin) with directions converging on lights,
-            # so the launch's own re-sort may be overhead there too:
-            # RFW_DB_OCCL_NOSORT=1 skips it for A/Bs (driver_tail CAN
-            # measure this one — the bounce body owns this branch)
-            _nosort_b = bool(os.environ.get("RFW_DB_OCCL_NOSORT"))
+            # points — skip the sort there (and use the envelope enum);
+            # bounce origins are compaction-sorted (coherent by origin)
+            # with directions converging on lights; whether the launch's
+            # own re-sort still pays there is unmeasured on the GPU
             occ = intersector.occluded(scene, s_origin, l_dir, s_dist,
-                                       sort=depth > 0 and not _nosort_b,
-                                       coherent=depth == 0)
+                                       sort=depth > 0, coherent=depth == 0)
             radiance = radiance + jnp.where(
                 (want_shadow & ~occ)[..., None], nee, 0.0)
 

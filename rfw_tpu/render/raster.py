@@ -6,7 +6,7 @@ with distance/NdotL attenuation and **no shadows** (shaders/simple.frag:
 297-341; ShadowMap.cpp is an empty stub). Its role is the cheap, always-
 available preview/editor view.
 
-TPUs have no rasterization hardware, so primary visibility here comes from
+Primary visibility here comes from
 the same intersectors as the path tracers (one bounce, no shadow rays, no
 accumulation) — the *output contract* of GLRenderer (instant un-shadowed
 forward shading with Lambert falloff) on the one compute substrate the chip

@@ -5,7 +5,7 @@ The analog of the reference backends' ``set_mesh``/``update`` upload path
 planes for every *instance* are transformed to world space, concatenated,
 BVH-built and permuted into leaf-contiguous order; materials/textures/lights/
 skybox become flat planes. The result is one pytree (`dict`) consumed by all
-engines — the TPU replacement for the reference's device-pointer tables.
+engines — the replacement for the reference's device-pointer tables.
 
 Design note (vs. reference): the reference keeps a two-level TLAS/BLAS so
 instances can move without re-upload. Here instances are flattened into one
@@ -23,7 +23,7 @@ import numpy as np
 
 from ..bvh.builder import build_bvh, triangle_bounds
 from ..bvh.wide import (SUPER_G, collapse_wide, extract_treelets,
-                        spatial_treelets, subdivide_cells)
+                        spatial_treelets)
 from ..config import RenderConfig
 from ..ops.intersect import woop_matrices
 from ..scene.mesh import TriangleSoA
@@ -45,9 +45,8 @@ def _transform_triangles_all(instances: list[InstancedMesh]) -> dict:
     system.cpp:987 normal_transform):
     concatenate the raw SoA planes, then ONE vectorized transform pass
     with per-triangle (3,3) matrices gathered by instance index. Bench
-    scenes carry ~700 (mesh, instance) pairs; the per-pair numpy loop
-    cost ~1 s of the host scene build in call overhead alone
-    (tools/scene_build_profile.py). Values match the per-instance path
+    scenes carry hundreds of (mesh, instance) pairs, and a per-pair numpy
+    loop pays call overhead for each. Values match the per-instance path
     up to fp association (goldens hold at their 2e-3 RMSE gate).
 
     Returns the concatenated plane dict (geometric planes transformed;
@@ -107,13 +106,11 @@ def _transform_triangles_all(instances: list[InstancedMesh]) -> dict:
 def _woop_planes(pad_woop: np.ndarray, k_size: int,
                  cell_bmin: np.ndarray | None = None,
                  cell_bmax: np.ndarray | None = None) -> np.ndarray:
-    """(T_pad, 3, 4) Woop matrices → (n_treelets, 16, k_size) DMA blocks.
+    """(T_pad, 3, 4) Woop matrices → (n_treelets, 16, k_size) blocks.
 
-    Rows 0-11 are the Woop transform rows; row 12 carries the cell's AABB
-    in lanes 0-5 (lo.xyz, hi.xyz) so kernels get the bounds in the same
-    DMA (the pair kernel's per-cell interest skip reads them as scalars —
-    a separate (T, 8, G) bounds array is not DMA-able: Mosaic requires
-    128-aligned minor dims). Rows 13-15 stay zero (sublane alignment).
+    Rows 0-11 are the Woop transform rows, component-major so each row is
+    one contiguous K-lane load; row 12 carries the cell's AABB in lanes
+    0-5 (lo.xyz, hi.xyz). Rows 13-15 stay zero (a power-of-two row count).
     """
     t_pad = pad_woop.shape[0]
     n_treelets = t_pad // k_size
@@ -133,8 +130,8 @@ def _pow2(n: int) -> int:
 
 def _pad_wide(wide, min_cap: int = 0):
     """Pad wide-BVH node arrays to a power-of-two count (>= ``min_cap``) so
-    animated scenes keep stable shapes across frames (shape changes force
-    re-jit — 80 s per frame on TPU). ``min_cap`` carries the engine's
+    animated scenes keep stable shapes across frames (a shape change
+    forces a re-jit). ``min_cap`` carries the engine's
     high-water mark: a deforming mesh whose node count crosses a power of
     two would otherwise still flip shapes mid-animation."""
     n = wide.bmin.shape[0]
@@ -210,6 +207,7 @@ def woop_matrices_jnp(v0, v1, v2):
     """jnp port of ops.intersect.woop_matrices for the device refit path
     (f32 — the host build uses f64 then truncates; the Möller–Trumbore
     winner refinement in the intersectors absorbs the difference)."""
+    import jax
     import jax.numpy as jnp
 
     e1 = v1 - v0
@@ -223,7 +221,8 @@ def woop_matrices_jnp(v0, v1, v2):
     r2 = n
     rot = jnp.stack([r0, r1, r2], axis=1)              # (T, 3, 3)
     rot = jnp.where(bad[:, None, None], 0.0, rot)
-    trans = -jnp.einsum("tij,tj->ti", rot, v0)
+    trans = -jnp.einsum("tij,tj->ti", rot, v0,
+                        precision=jax.lax.Precision.HIGHEST)
     trans = jnp.where(bad[:, None],
                       jnp.array([0.0, 0.0, 1.0], jnp.float32), trans)
     return jnp.concatenate([rot, trans[:, :, None]], axis=2)  # (T, 3, 4)
@@ -231,11 +230,10 @@ def woop_matrices_jnp(v0, v1, v2):
 
 def make_device_refit(scene: dict, instances: list[InstancedMesh],
                       perm: np.ndarray, config: RenderConfig):
-    """Compile a DEVICE-side same-topology scene refresher (VERDICT r1
-    next #2: the ~2 s host refit was re-transform + re-collapse + Woop
-    rebuild in numpy — here the whole deformation path is one jitted
-    function, so a skinned-mesh frame costs a sub-MB upload + a few ms of
-    device math).
+    """Compile a DEVICE-side same-topology scene refresher: the host
+    refit is re-transform + re-collapse + Woop rebuild in numpy; here the
+    whole deformation path is one jitted function, so a skinned-mesh
+    frame costs a sub-MB upload plus device math.
 
     Static at compile time: instance structure, triangle counts and the
     builder permutation. Cell MEMBERSHIP is either kept static (refit
@@ -243,16 +241,14 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
     top_level_bvh.cpp:17-53) or REBUILT each call on device
     (``config.device_rebuild_cells``, default): a Morton sort of the
     deformed triangle centroids re-cells the scene — the LBVH-style
-    device rebuild SURVEY §7 prescribes for animation. Morton cells
-    measure within ~5% of the host kd-median cells' cull quality on the
-    real d1 stream (140.6 vs 133.5 steps/block, tools/
-    morton_cells_sim.py), and the rebuild is one argsort + gathers, so
-    per-frame deformation keeps FULL cull quality instead of drifting.
+    device rebuild SURVEY §7 prescribes for animation. The rebuild is one
+    argsort + gathers, so per-frame deformation keeps its cull quality
+    instead of drifting.
     Exactness is unaffected either way (cells bound their members).
 
     Refreshes the flat shading planes, the treelet/visit tables and the
     tri-pack geometric columns. The wide-BVH node arrays are NOT refit
-    (the flagship intersectors don't read them); engines force a full
+    (the visit and dense intersectors don't read them); engines force a full
     rebuild when switching to the 'bvh'/'tlas' intersectors.
 
     Returns refresh(slot_planes, xforms) → partial scene dict of jnp
@@ -267,7 +263,6 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
     tl = scene["treelets"]
     stp = np.asarray(tl["slot_to_prim"])
     k = int(tl["size"])
-    has_sub = "bmin32" in tl and k % 4 == 0
     n_cells = stp.shape[0] // k
     n_tris = int(np.asarray(scene["tri_vertices"]).shape[0])
     rebuild_cells = bool(getattr(config, "device_rebuild_cells", True))
@@ -293,6 +288,8 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
                                << (3 * i + (2 - ax)))
         return jnp.argsort(code).astype(jnp.int32)
 
+    hi = jax.lax.Precision.HIGHEST   # geometry: no TF32
+
     @jax.jit
     def refresh(slot_planes, xforms):
         parts = {kk: [] for kk in ("vertices", "normals", "gnormal",
@@ -302,10 +299,11 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
             r = xforms["r"][i]
             t = xforms["t"][i]
             nmat = xforms["nmat"][i]
-            parts["vertices"].append(p["vertices"] @ r.T + t)
+            parts["vertices"].append(
+                jnp.matmul(p["vertices"], r.T, precision=hi) + t)
             for kk, m in (("normals", nmat), ("gnormal", nmat),
                           ("tangent", r), ("bitangent", r)):
-                v = p[kk] @ m.T
+                v = jnp.matmul(p[kk], m.T, precision=hi)
                 v = v / jnp.maximum(
                     jnp.linalg.norm(v, axis=-1, keepdims=True), 1e-20)
                 parts[kk].append(v)
@@ -381,30 +379,6 @@ def make_device_refit(scene: dict, instances: list[InstancedMesh],
             "scene_lo": verts.reshape(-1, 3).min(axis=0),
             "scene_hi": verts.reshape(-1, 3).max(axis=0),
         }
-        if has_sub:
-            # tvisit child tables: children are contiguous 32-slot
-            # quarters of each cell (Morton-rebuilt cells give Z-order
-            # quarters — spatially coherent; static-membership refits
-            # keep the build-time kd quarters). Pure reshapes of the
-            # per-slot data already computed above.
-            k4 = k // 4
-            b32lo = vlo.reshape(n_cells * 4, k4, 3).min(axis=1)
-            b32hi = vhi.reshape(n_cells * 4, k4, 3).max(axis=1)
-            e32 = b32hi[:, 0] < b32lo[:, 0]
-            b32lo = jnp.where(e32[:, None], 3e37, b32lo)
-            b32hi = jnp.where(e32[:, None], 3e37, b32hi)
-            w32 = pad_woop.reshape(n_cells * 4, k4, 3, 4).transpose(
-                0, 2, 3, 1)
-            # lane-padded (16, 128) child blocks — see build_device_scene
-            wp32 = jnp.zeros((n_cells * 4, 16, 128), jnp.float32)
-            wp32 = wp32.at[:, 0:12, :k4].set(
-                w32.reshape(n_cells * 4, 12, k4))
-            wp32 = wp32.at[:, 12, 0:3].set(b32lo)
-            wp32 = wp32.at[:, 12, 3:6].set(b32hi)
-            out["_treelets_update"].update({
-                "bmin32": b32lo, "bmax32": b32hi,
-                "wplanes32": wp32,
-            })
         if slots_new is not None:
             out["_treelets_update"]["slot_to_prim"] = slots_new
         out["woop"] = woop_matrices_jnp(verts[:, 0], verts[:, 1],
@@ -579,19 +553,6 @@ def build_device_scene(
     else:
         treelets = extract_treelets(bvh, tmin, tmax,
                                     size=config.treelet_size)
-    # children need >= 8 slots each: _woop_planes writes cell bounds into
-    # lanes 0:6 of plane row 12, and sublane slicing is 8-aligned
-    sub_tables = (config.subcell_tables and config.treelet_size % 4 == 0
-                  and config.treelet_size >= 32)
-    if sub_tables:
-        # spatially reorder each cell's slots and derive K/4 child cells
-        # (bvh/wide.subdivide_cells) — cell membership unchanged, so every
-        # existing consumer is unaffected; the 'tvisit' intersector gets a
-        # 4x finer exact candidate granularity nested in the cells
-        (treelets.pad_map, bmin32, bmax32,
-         _count32) = subdivide_cells(treelets.pad_map, tmin, tmax,
-                                     config.treelet_size)
-
     verts = cat["vertices"][perm]
     scene = {
         "tri_vertices": verts,
@@ -612,7 +573,7 @@ def build_device_scene(
             "bmin": wide.bmin, "bmax": wide.bmax,
             "child": wide.child, "count": wide.count,
         },
-        # treelets for the Pallas/MXU engine: padded woop matrices +
+        # treelets for the dense/visit intersectors: padded woop matrices +
         # padded-slot → permuted-index map
         "materials": materials,
         "lights": lights,
@@ -647,11 +608,6 @@ def build_device_scene(
             [pad_perm, np.full(pad_n * k, -1, np.int32)])
         padded_verts = np.concatenate(
             [padded_verts, np.zeros((pad_n * k, 3, 3), np.float32)])
-        if sub_tables:
-            bmin32 = np.concatenate(
-                [bmin32, np.full((pad_n * 4, 3), 3e37, np.float32)])
-            bmax32 = np.concatenate(
-                [bmax32, np.full((pad_n * 4, 3), 3e37, np.float32)])
 
     # pad_woop by GATHER from the already-computed per-triangle woop
     # plane (scene["woop"], permuted order; pad_perm indexes it) — the
@@ -661,8 +617,8 @@ def build_device_scene(
     pad_woop = np.zeros((pad_perm.shape[0], 3, 4), np.float32)
     pad_woop[:, 2, 3] = 1.0
     pad_woop[pv_all] = scene["woop"][pad_perm[pv_all]]
-    # super grouping for the Pallas kernel: SUPER_G consecutive cells form
-    # one DMA/cull unit. Consecutive kd cells are siblings, so supers are
+    # super grouping for the visit kernel: SUPER_G consecutive cells form
+    # one cull unit. Consecutive kd cells are siblings, so supers are
     # spatially tight. cbounds packs per-cell AABBs for the in-kernel
     # per-cell skip; sbmin/sbmax are the cull-level super bounds.
     n_cells = treelets.bmin.shape[0]
@@ -684,10 +640,10 @@ def build_device_scene(
     sbmax[empty] = 3e37
     scene["treelets"] = {
         "woop": pad_woop,
-        # Pallas kernel layout: per treelet a (16, K) block — rows 0-3 the
+        # visit kernel layout: per treelet a (16, K) block — rows 0-3 the
         # Woop rows producing barycentric u for the K triangles, 4-7 → v,
-        # 8-11 → w, 12-15 zero padding (sublane alignment). One aligned DMA
-        # per treelet (the Pallas kernels DMA these blocks).
+        # 8-11 → w, row 12 the cell bounds, 13-15 zero. One contiguous
+        # load per row and visit.
         "wplanes": _woop_planes(pad_woop, config.treelet_size,
                                 treelets.bmin, treelets.bmax),
         "verts": padded_verts,
@@ -704,23 +660,6 @@ def build_device_scene(
         "scene_hi": tmax.max(axis=0).astype(np.float32),
         "top": None,   # filled below (padded to the engine's high-water cap)
     }
-    if sub_tables:
-        k4 = config.treelet_size // 4
-        # wplanes32 is the transposed kernel's DMA unit: each CHILD gets
-        # a full (16, 128) block with its k4 tri planes in lanes 0..k4-1
-        # and zero pad beyond — Mosaic requires DMA/lane slices aligned
-        # to the 128-lane tiling (a (16, k4) array is not DMA-able; the
-        # kernel instead transposes full-width rows and SUBLANE-slices
-        # [0:k4], which has only 8-row alignment). 4x HBM for the child
-        # tables (~8 KB/child) buys alignment-free addressing.
-        wp32 = np.zeros((bmin32.shape[0], 16, 128), np.float32)
-        wp32[:, :, :k4] = _woop_planes(pad_woop, k4, bmin32, bmax32)
-        scene["treelets"].update({
-            # K/4 child cells nested in the cells (slot ranges
-            # [child*k4, (child+1)*k4))
-            "bmin32": bmin32, "bmax32": bmax32,
-            "wplanes32": wp32,
-        })
     if config.use_tlas:
         scene["tlas"] = _build_tlas_tables(instances, inv_perm)
 
@@ -754,7 +693,7 @@ def build_device_scene(
     return scene
 
 
-_SCENE_CACHE_VERSION = "v2"   # v2: lane-padded wplanes32 child blocks
+_SCENE_CACHE_VERSION = "v3"   # v3: no sub-cell tables
 # keys attached from the caller's args, never cached (re-attached on load)
 _SCENE_ATTACH_KEYS = ("materials", "lights", "skybox", "atlas",
                       "atlas_desc", "matlas", "matlas_desc")
@@ -781,7 +720,7 @@ def _scene_cache_key(instances, config, area_light_overrides,
     import hashlib
     h = hashlib.sha1(str((
         _SCENE_CACHE_VERSION, config.treelet_size, config.treelet_spatial,
-        config.use_tlas, SUPER_G, config.subcell_tables,
+        config.use_tlas, SUPER_G,
         sorted((area_light_overrides or {}).items(),
                key=lambda kv: kv[0]),
         sorted((shape_caps or {}).items()),
@@ -939,9 +878,7 @@ _GEOMETRIC_PLANES = ("vertices", "normals", "gnormal", "tangent",
 def build_tri_pack(scene: dict):
     """Pack the shading-hot per-triangle attributes into ONE (T, 32) f32
     plane so hit shading does a single row gather instead of ~11 separate
-    ones — TPU gather cost is per-OP for large tables (measured: 16
-    separate (R,) gathers from a 305k-row table cost 99 ms vs 5.9 ms for
-    one (R,16) row gather — tools/gather_pack_bench.py).
+    ones.
 
     Layout: 0-8 normals, 9-14 uv, 15-17 gnormal, 18-20 tangent,
     21-23 bitangent, 24 material id, 25 lod, 26 area, 27 light_tri_idx
@@ -968,7 +905,7 @@ def refresh_tri_pack(pack_host: np.ndarray, planes: dict) -> np.ndarray:
     pack from freshly computed numpy planes. The invariant columns (uv
     9:15, material/lod 24:26, light idx 27) are reused from the cache —
     np.asarray on device-resident planes every animation frame was forcing
-    ~300k-row device→host syncs on the fast-update paths (ADVICE r1)."""
+    ~300k-row device→host syncs on the fast-update paths."""
     p = np.array(pack_host)      # copy — the cache stays pristine
     t = p.shape[0]
     p[:, 0:9] = np.asarray(planes["tri_normals"]).reshape(t, 9)

@@ -1,8 +1,7 @@
 """Binary FBX 7.x loader → SceneObject (dependency-free).
 
 Completes the Assimp-breadth surface (reference assimp/object.cpp:88-91 —
-Assimp's "any format" net includes FBX, the one widely-used binary format
-round 1 lacked). Scope: static geometry — meshes (polygons of any arity,
+Assimp's "any format" net includes FBX). Scope: static geometry — meshes (polygons of any arity,
 fan-triangulated), per-vertex/per-polygon-vertex normals and UVs (direct
 and index-to-direct mappings), per-mesh Lambert/Phong material colors, and
 node transforms (Lcl Translation/Rotation/Scaling with the standard FBX
@@ -136,7 +135,7 @@ def _iter_node(data, pos, wide):
 def _parse_ascii(text: str):
     """ASCII FBX → the same ``_Node`` tree the binary parser yields
     (reference parity: Assimp reads both encodings, assimp/object.cpp:
-    88-91; round 2 shipped binary-only — VERDICT r2 missing #5).
+    88-91).
 
     Grammar (documented publicly): ``Name: p1, p2, ... {`` opens a
     block; ``Key: *N { a: v,v,... }`` is an array node whose ``a:``

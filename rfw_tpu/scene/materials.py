@@ -5,9 +5,8 @@ Reimplements HostMaterial / material_list
 Disney-principled parameters + texture slots, emissive = any(color > 1)
 (material_list.h:76). Instead of the reference's 128-byte fixed-point packed
 ``Material`` (structs.h:85-161), the device representation is a dict of SoA
-float32/int32 planes — gather-friendly on TPU and lossless (no 0.8 fixed point
-quantization needed; HBM is not the constraint the reference's 128-bit loads
-were).
+float32/int32 planes — gather-friendly and lossless (no 0.8 fixed point
+quantization needed).
 """
 
 from __future__ import annotations

@@ -4,7 +4,7 @@ Replaces the reference's per-vertex SSE joint blend
 (/root/reference/RFW/system/src/rfw/geometry/gltf/mesh.cpp:18-125) and morph
 blending (:127-165) with dense numpy/jnp contractions: the per-vertex blended
 joint matrix is `einsum("vj,vjrc->vrc", weights, M[joints])` — one batched
-matmul, exactly the kind of op XLA tiles onto the MXU when run on device.
+matmul, which XLA maps onto a batched matrix product when run on device.
 
 Host (numpy) is used for scene updates feeding BVH refit; `jnp` variants are
 provided for fully on-device animation (used by the animation benchmark).

@@ -1,4 +1,4 @@
-"""Textures: load, mip chain, and the flat HBM atlas.
+"""Textures: load, mip chain, and the flat device atlas.
 
 Reimplements the reference texture pipeline (texture.cpp): LDR images become
 linear-RGBA float with a 5-level box-filtered mip chain (MIPLEVELCOUNT,
@@ -6,7 +6,7 @@ settings.h:3, texture.cpp:94,137); HDR images are float and unmipped
 (texture.cpp:96-113). Like the CUDA backend — which flattens every texture
 into one big device array (CUDART/src/Context.cpp:201-268) — all textures and
 their mips are packed into a single (N, 4) float32 atlas; shading gathers rows
-by computed address. One flat array + row gathers is the TPU-friendly layout.
+by computed address.
 """
 
 from __future__ import annotations
@@ -201,10 +201,7 @@ _FLAT_NORMAL = np.array([0.5, 0.5, 1.0, 1.0], np.float32)
 def build_merged_material_atlas(materials, textures: list[Texture]):
     """Merge each material's diffuse/normal/roughness maps into ONE texture
     whose texels pack all three as RGBA8 u32 words, so shading needs one
-    trilinear fetch (8 row gathers) instead of three (24) — the gather count,
-    not bandwidth, is the TPU cost (measured: 24 separate row gathers cost
-    ~264 ms per 518k lanes; one fused (R,24) gather is worse; multi-row
-    slice gathers are 30x worse — tools/shade_opt.py).
+    trilinear fetch (8 row gathers) instead of three (24).
 
     Texel layout: word0 = diffuse RGBA8, word1 = normal-map RGBA8,
     word2 = roughness/metalness RGBA8 (glTF convention: G=rough, B=metal),

@@ -22,7 +22,8 @@ from .config import RenderConfig
 from .refs import GeometryRef, InstanceRef, LightRef
 from .render.context import EngineContext, RenderStatus, create_engine
 from .scene import (AreaLight, DirectionalLight, HostMaterial, MaterialList,
-                    PointLight, Skybox, SpotLight, load_object, make_quad)
+                    PointLight, SceneMesh, Skybox, SpotLight, load_object,
+                    make_quad)
 from .scene.lights import pack_lights
 from .scene.object import SceneObject
 from .utils import logger
@@ -124,9 +125,14 @@ class RenderSystem:
 
     def add_quad(self, normal, position, width: float, height: float,
                  material_id: int) -> GeometryRef:
-        mesh = make_quad(normal, position, width, height, material_id)
+        return self.add_mesh(
+            make_quad(normal, position, width, height, material_id), "quad")
+
+    def add_mesh(self, mesh: SceneMesh, name: str = "mesh") -> GeometryRef:
+        """Add an in-memory mesh as a one-mesh object (material ids index
+        this system's material list)."""
         mesh.mesh_slot = self.request_mesh_slot()
-        obj = SceneObject(name="quad")
+        obj = SceneObject(name=name)
         obj.meshes.append(mesh)
         obj.finalize()
         self._objects.append(obj)

@@ -4,7 +4,7 @@ The reference is an *interactive* renderer: a GLFW window with free-camera
 controls (RFW/system/src/rfw/app.cpp:3-26, utils/window.h:165-240) plus
 the ImGui panel that is its whole observability story — live Mrays/s,
 per-stage times, settings listboxes, the probe inspector
-(Examples/imgui_app/main.cpp:229-400). A TPU service cannot open GLFW, so
+(Examples/imgui_app/main.cpp:229-400). A headless service cannot open GLFW, so
 the equivalent surface here is a self-contained HTTP viewer:
 
 * the accumulating frame streams as PNG to a browser canvas,

@@ -1,4 +1,4 @@
-"""Scene builders for the BASELINE-config golden matrix (VERDICT r2 #7).
+"""Scene builders for the BASELINE-config golden matrix.
 
 Each builder mirrors one BASELINE.json config at golden-test scale
 (64x64, low spp — pinning estimator behavior, not convergence):

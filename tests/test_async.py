@@ -126,3 +126,16 @@ def test_sample_batching_bitwise():
     rs2.render_frame(status=RenderStatus.CONVERGE, samples=1)
     looped = rs2.render_frame(status=RenderStatus.CONVERGE, samples=1)
     assert np.array_equal(np.asarray(batched), np.asarray(looped))
+
+
+def test_double_dispatch_raises():
+    """A second dispatch while a frame is in flight raises RuntimeError
+    (not an assert, which ``python -O`` strips) and leaves the in-flight
+    frame intact."""
+    import pytest
+
+    rs = _scene()
+    rs.render_frame_async(status=RenderStatus.RESET, samples=1)
+    with pytest.raises(RuntimeError, match="in flight"):
+        rs.render_frame_async(status=RenderStatus.CONVERGE, samples=1)
+    assert np.isfinite(rs.finish_frame()).all()

@@ -76,41 +76,6 @@ def test_traversal_matches_brute_force(n):
     assert (prim_b[hit_b] == prim_ref[hit_ref]).mean() > 0.98
 
 
-def test_traversal_chunked_launches_bitwise(monkeypatch):
-    """The lax.map chunking of large launches (the round-5 TPU-worker
-    crash workaround — only engaged off-CPU in production) must be
-    bitwise-identical to the single-launch path: rays are independent
-    and the padding rows never reach the output."""
-    verts = random_tris(400, seed=4)
-    tmin, tmax = triangle_bounds(verts)
-    bvh = build_bvh(tmin, tmax, leaf_size=4, use_native=False)
-    wide = collapse_wide(bvh, width=4)
-    perm = verts[bvh.prim_order]
-    v0 = jnp.asarray(perm[:, 0])
-    e1 = jnp.asarray(perm[:, 1] - perm[:, 0])
-    e2 = jnp.asarray(perm[:, 2] - perm[:, 0])
-    wb = {"bmin": jnp.asarray(wide.bmin), "bmax": jnp.asarray(wide.bmax),
-          "child": jnp.asarray(wide.child), "count": jnp.asarray(wide.count)}
-
-    rng = np.random.default_rng(11)
-    r = 300                                # not a multiple of the chunk
-    o = jnp.asarray(rng.uniform(-6, 6, (r, 3)).astype(np.float32))
-    d = rng.normal(size=(r, 3)).astype(np.float32)
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
-
-    ref = traverse.traverse_wide(o, d, wb, (v0, e1, e2), leaf_size=4)
-    monkeypatch.setattr(traverse, "TPU_VMAP_CHUNK", 128)
-    monkeypatch.setattr(traverse, "FORCE_CHUNK", True)
-    traverse.traverse_wide.clear_cache()    # jit traced the unchunked path
-    try:
-        chunked = traverse.traverse_wide(o, d, wb, (v0, e1, e2),
-                                         leaf_size=4)
-    finally:
-        traverse.traverse_wide.clear_cache()
-    for a, b in zip(ref, chunked):
-        assert np.array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_any_hit_terminates_consistently():
     verts = random_tris(400, seed=5)
     tmin, tmax = triangle_bounds(verts)

@@ -1,4 +1,4 @@
-"""Golden matrix for the BASELINE configs (VERDICT r2 #7).
+"""Golden matrix for the BASELINE configs.
 
 Pins small-resolution goldens for config 2 (full PT, NEE+MIS, mirror +
 diffuse, area + point lights) and config 3 (microfacet + textures +

@@ -117,3 +117,41 @@ def test_aabb():
         jnp.array([[0.0, 5.0, -5.0]]), inv,
         jnp.array([-1.0, -1, -1]), jnp.array([1.0, 1, 1]))
     assert not bool(hit2[0])
+
+
+def test_woop_highest_matches_moller_trumbore_grazing():
+    """Near-degenerate rays (within ~0.5 degrees of the triangle plane)
+    through triangle interiors: the Woop contraction, requested at HIGHEST
+    precision (a TF32 product would flip these), agrees with Möller–
+    Trumbore on every hit and on t."""
+    import jax
+
+    rng = np.random.default_rng(3)
+    k, r = 32, 256
+    v0, v1, v2 = random_scene(k, seed=5)
+    n = np.cross(v1 - v0, v2 - v0)
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    tri = rng.integers(0, k, r)
+    b = rng.uniform(0.2, 0.4, (r, 2))
+    p = (v0[tri] + b[:, :1] * (v1 - v0)[tri] + b[:, 1:] * (v2 - v0)[tri])
+    inplane = np.cross(n[tri], rng.normal(size=(r, 3)))
+    inplane /= np.linalg.norm(inplane, axis=1, keepdims=True)
+    tilt = rng.uniform(2e-3, 1e-2, (r, 1)) * rng.choice([-1, 1], (r, 1))
+    d = inplane + tilt * n[tri]
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    o = (p - 3.0 * d).astype(np.float32)
+
+    woop = jnp.asarray(isec.woop_matrices(v0, v1, v2))
+    jaxpr = str(jax.make_jaxpr(isec.intersect_woop)(
+        jnp.asarray(o), jnp.asarray(d), woop))
+    assert jaxpr.count("HIGHEST") >= 2, "geometry contraction not HIGHEST"
+    hit_w, t_w, _, _ = isec.intersect_woop(jnp.asarray(o), jnp.asarray(d),
+                                           woop)
+    hit_mt, t_mt, _, _ = isec.intersect_tri(
+        o[:, None, :], d[:, None, :], v0[None], (v1 - v0)[None],
+        (v2 - v0)[None])
+    own = np.arange(r), tri
+    assert np.asarray(hit_mt)[own].all() and np.asarray(hit_w)[own].all()
+    rel = (np.abs(np.asarray(t_w)[own] - np.asarray(t_mt)[own])
+           / np.asarray(t_mt)[own])
+    assert rel.max() < 1e-2

@@ -169,6 +169,6 @@ def test_texture_filter_modes_similar():
         assert rel < 0.15, (mode, rel)
     # stochastic (the default): per-pixel noise but the MEAN must match
     # trilinear tightly — its single tap is an unbiased estimator of the
-    # 8-tap filter (tools/texfilter_ab.py measured zero bias at 518k rays)
+    # 8-tap filter
     rel_mean = abs(imgs["stochastic"].mean() - tri.mean()) / tri.mean()
     assert rel_mean < 0.02, rel_mean

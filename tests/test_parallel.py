@@ -85,7 +85,7 @@ def _render_engine(name, cfg, intersector=None):
 
 def test_n_devices_through_engine_abi():
     """RenderConfig.n_devices routes render_frame through the tile mesh —
-    the product-ABI multi-chip path (VERDICT r1 next #3). Frame, stats
+    the product-ABI multi-chip path. Frame, stats
     and probe must match the single-device engine."""
     cfg1 = RenderConfig(blue_noise=False, max_path_length=1)
     img1, e1 = _render_engine("megakernel", cfg1)
@@ -140,7 +140,7 @@ def test_n_devices_driver_route(monkeypatch):
     """n_devices > 1 on a wavefront-driver engine routes through
     make_driver_engine_step: the flagship compacted whole-sample program
     (per-depth lane compaction, traced chunk trips) runs PER CHIP inside
-    shard_map (VERDICT r2 next #4) — frame, stats and probe must match
+    shard_map — frame, stats and probe must match
     the single-device engine."""
     import rfw_tpu
     import rfw_tpu.parallel.tiles as tiles_mod

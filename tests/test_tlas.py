@@ -269,7 +269,7 @@ def test_tlas_instance_move_fast_path(monkeypatch):
 
 
 def test_flagship_instance_move_no_rebuild(monkeypatch):
-    """VERDICT r1 next #4 acceptance: an instance MOVE on the flagship
+    """An instance MOVE on the flagship
     (visit) engine costs a jitted device refresh, not a flatten+rebuild,
     and renders exactly like a fresh build. (Rigid moves keep the fixed
     cell membership tight, so cull quality is preserved without a
@@ -337,7 +337,7 @@ def test_flagship_instance_move_no_rebuild(monkeypatch):
 
 
 def test_tlas_touched_compaction_many_instances(monkeypatch):
-    """Instance-scaling structure (VERDICT r3 #7): with many off-ray
+    """Instance-scaling structure: with many off-ray
     instances, the tlas intersector's touched-compaction while_loop must
     return the same hits as the flattened 4-wide BVH — including through
     the PADDED multi-chunk premask path (ray chunk shrunk below the ray

@@ -1,7 +1,7 @@
 """Visit-list intersector (ops/visit_intersect.py) parity vs brute force.
 
 SURVEY §4 oracle pattern: traversal == brute-force intersect on random
-scenes. Runs the Pallas kernel in interpret mode on CPU.
+scenes. Runs the Pallas (Triton) kernel in interpret mode on the CPU.
 """
 
 import numpy as np
@@ -107,9 +107,8 @@ def test_visit_heterogeneous_finish_passes(monkeypatch):
     """Blocks that finish their recull walk on DIFFERENT passes: a block
     finishing early must keep its committed hits while later passes run
     for other blocks (regression: passes after a block finished returned
-    (t=0, slot=-1) and "0 < best_t" clobbered its results — 38% missed
-    hits on TPU bounce streams; homogeneous-finish tests never caught
-    it).
+    (t=0, slot=-1) and "0 < best_t" clobbered its results on bounce
+    streams; homogeneous-finish tests never caught it).
 
     Scene: a tube of inward-facing rings along +x (axis rays cross every
     ring's cell but miss its triangles — the horizon never tightens, so
@@ -219,3 +218,75 @@ def test_visit_envelope_enum_matches_brute(soup_scene):
     assert (prim_p[both] == prim_b[both]).mean() > 0.999
     terr = np.abs(t_p[both] - t_b[both])
     assert (terr / np.maximum(t_b[both], 1e-6)).max() < 1e-4
+
+
+@pytest.mark.parametrize("treelet_size", [48, 24])
+def test_visit_k_not_multiple_of_chunk(treelet_size):
+    """Cells of K triangles with K % KC != 0 (or K < KC): the wrapper pads
+    the Woop planes with never-hit lanes; results stay brute-force exact."""
+    import dataclasses
+    rng = np.random.default_rng(17)
+    nt = 300
+    tri_c = rng.uniform(-6, 6, (nt, 3))
+    verts = (tri_c[:, None, :] + rng.normal(0, 0.6, (nt, 3, 3))).astype(
+        np.float32)
+    soa = build_triangles(verts.reshape(-1, 3),
+                          np.arange(nt * 3).reshape(nt, 3))
+    inst = scene_data.InstancedMesh(
+        triangles=soa, transform=np.eye(4, dtype=np.float32),
+        instance_id=0, mesh_slot=0)
+    cfg = dataclasses.replace(RenderConfig(), treelet_size=treelet_size)
+    scene = scene_data.build_device_scene(
+        [inst], MaterialList().generate_device_materials(),
+        pack_lights([], [], [], []), None, None, cfg)
+    scene.pop("_bvh_host")
+    scene.pop("_pack_host", None)
+    scene = jax.tree.map(
+        lambda x: jnp.asarray(x) if isinstance(x, np.ndarray) else x, scene)
+    assert scene["treelets"]["wplanes"].shape[2] == treelet_size
+    assert treelet_size % visit_intersect.KC != 0
+    o, _, tm = _rays(512, seed=23)
+    aim = rng.uniform(-5, 5, (512, 3)).astype(np.float32) - np.asarray(o)
+    d = jnp.asarray(aim / np.linalg.norm(aim, axis=1, keepdims=True))
+    t_p, prim_p, _, _ = visit_intersect.closest_hit(scene, o, d, cfg,
+                                                    t_max=tm)
+    t_b, prim_b, _, _ = _brute(scene, o, d, cfg)
+    prim_b = jnp.where((t_b < tm) & (prim_b >= 0), prim_b, -1)
+    prim_p, prim_b = np.asarray(prim_p), np.asarray(prim_b)
+    assert ((prim_p >= 0) == (prim_b >= 0)).all()
+    assert (prim_p >= 0).sum() > 50
+    both = (prim_p >= 0) & (prim_b >= 0)
+    assert (prim_p[both] == prim_b[both]).mean() > 0.999
+
+
+def test_block_entries_matches_numpy():
+    """The plain-jnp enumeration against a NumPy per-block minimum of the
+    per-ray slab entry over crossed cells."""
+    rng = np.random.default_rng(29)
+    nb, t = 3, 40
+    block = visit_intersect.BLOCK
+    o = rng.uniform(-5, 5, (nb * block, 3)).astype(np.float32)
+    d = rng.normal(size=(nb * block, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[::97, 0] = 0.0                       # axis-parallel rays
+    tm = rng.uniform(0.5, 20.0, nb * block).astype(np.float32)
+    tm[::5] = 0.0                          # dead lanes cross nothing
+    lo = rng.uniform(-6, 5, (t, 3)).astype(np.float32)
+    hi = lo + rng.uniform(0.1, 2.0, (t, 3)).astype(np.float32)
+    bounds8 = np.concatenate([lo.T, hi.T, np.zeros((2, t), np.float32)])
+    rays8 = visit_intersect._pack_rays8(jnp.asarray(o), jnp.asarray(d),
+                                        jnp.asarray(tm))
+    got = np.asarray(visit_intersect.block_entries(rays8,
+                                                   jnp.asarray(bounds8)))
+
+    safe = np.where(np.abs(d) < 1e-12, np.where(d < 0, -1e-12, 1e-12), d)
+    inv = (1.0 / safe)[:, None, :]
+    t1 = (lo[None] - o[:, None, :]) * inv
+    t2 = (hi[None] - o[:, None, :]) * inv
+    ent = np.maximum(np.minimum(t1, t2).max(axis=2), 0.0)
+    ext = np.maximum(t1, t2).min(axis=2)
+    crossed = ent < np.minimum(ext, tm[:, None])
+    want = np.where(crossed, ent, 1e30).reshape(nb, block, t).min(axis=1)
+    assert got.shape == (nb, t)
+    assert (got >= 1e30).sum() == (want >= 1e30).sum()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
